@@ -1,0 +1,352 @@
+"""The banded neighbour kernels: CUDA wrappers, plain PyTorch versions and
+launch counts. The port of ``vilgod_tpu/ops/pallas_kernels.py`` for the
+four banded kernels the pipeline runs.
+
+Layout (as in the JAX package): clouds are TRANSPOSED and padded to 8
+rows, ``(8, N)`` float32 with x, y, z[, f3, f4, f5] in the leading rows
+and zeros below; invalid points sit at a far ``SENTINEL`` coordinate so
+no radius reaches them. Each query block of ``tq`` sorted points scans
+the data window ``[start, start + w)`` (``start`` clamped into
+``[0, n_d - w]``), computing squared distances in difference form,
+``(q - d)**2`` summed over rows 0..ndim-1 in order, each product and sum
+rounded on its own (no FMA), so kernel and plain version agree bit for
+bit and sit on the same side of every threshold.
+
+Each wrapper takes its plain version only for CPU tensors. For CUDA
+tensors it launches its kernel from ``csrc/banded.cu`` (built with nvcc
+for sm_90a at first use, into ``build/kernels/``) or raises; it never
+falls back. ``LAUNCHES`` counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+# Query tiles of the JAX package (they define the banded block structure,
+# hence the window starts, so the port keeps them): light kernels (count,
+# nearest) use TQ, the 3-level count and the min-label pass TQ_HEAVY. TD
+# is the data tile the window widths round to.
+TQ = 1024
+TQ_HEAVY = 512
+TD = 2048
+SENTINEL = 1.0e6
+
+# one CUDA thread block holds this many queries and stages this many data
+# points per shared-memory chunk; tq and every window width are multiples
+_CUDA_BLOCK = 256
+
+KERNEL_NAMES = ("banded_tile_count", "banded_tile_count3",
+                "banded_tile_min_label", "banded_tile_nearest")
+LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def prep_t8(points: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tensor:
+    """(N, F<=8) + mask -> (8, N_pad) transposed, sentinel-masked, contiguous."""
+    n, f = points.shape
+    pts = torch.where(mask[:, None], points.to(torch.float32),
+                      torch.tensor(SENTINEL, dtype=torch.float32,
+                                   device=points.device))
+    pad_n = -n % tile
+    out = torch.zeros((8, n + pad_n), dtype=torch.float32, device=points.device)
+    out[:f, :n] = pts.T
+    out[:f, n:] = SENTINEL
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the JAX package's XLA fallback inners)
+# ---------------------------------------------------------------------------
+
+def _dist2_t8(q_t8, d_t8, ndim):
+    """(q - d)**2 summed over rows 0..ndim-1 in order, each product and
+    sum rounded on its own (in-place ops, the same arithmetic)."""
+    acc = q_t8[0][:, None] - d_t8[0][None, :]
+    acc.mul_(acc)
+    for c in range(1, ndim):
+        diff = q_t8[c][:, None] - d_t8[c][None, :]
+        acc.add_(diff.mul_(diff))
+    return acc
+
+
+def _plain_chunk(device) -> int:
+    """Column chunk of the plain versions' window walk. On the CPU a 512-wide
+    (tq, chunk) distance tile stays in cache (twice as fast as 2048); on the
+    card the walk is launch-bound, so wider chunks mean fewer launches. Per
+    pair the arithmetic is the same, and the reductions (sum, min, first
+    argmin) are order-free."""
+    return 512 if device.type == "cpu" else 2048
+
+
+def _tiles(q_t8, d_t8, starts, tq, w, ndim):
+    """(query slice, global rank of the tile's first column, dist2 tile)
+    over every query block's window [s, s + w), s clamped into
+    [0, n_d - w]."""
+    n_d = d_t8.shape[1]
+    chunk = _plain_chunk(q_t8.device)
+    for b, s in enumerate(starts.tolist()):
+        s = min(max(s, 0), n_d - w)
+        qs = slice(b * tq, (b + 1) * tq)
+        for k in range(s, s + w, chunk):
+            e = min(k + chunk, s + w)
+            yield qs, k, e, _dist2_t8(q_t8[:, qs], d_t8[:, k:e], ndim)
+
+
+def count_plain(q_t8, d_t8, starts, r2, tq, w, ndim):
+    out = torch.zeros(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
+    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+        out[qs] += (dist2 <= r2).sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim):
+    out = torch.zeros((q_t8.shape[1], 3), dtype=torch.int32,
+                      device=q_t8.device)
+    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+        for lv in range(3):
+            out[qs, lv] += (dist2 <= levels2[lv]).sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim, big):
+    out = torch.full((pts_t8.shape[1],), big, dtype=torch.int32,
+                     device=pts_t8.device)
+    big_t = torch.tensor(big, dtype=torch.int32, device=pts_t8.device)
+    for qs, k, e, dist2 in _tiles(pts_t8, pts_t8, starts, tq, w, ndim):
+        # max-radius joint: HDBSCAN mutual-reachability linkage
+        joint = torch.maximum(radius2[qs][:, None], radius2[k:e][None, :])
+        cand = torch.where(dist2 <= joint, labels[k:e][None, :], big_t)
+        out[qs] = torch.minimum(out[qs], cand.amin(dim=1))
+    return out
+
+
+def nearest_plain(q_t8, d_t8, starts, tq, w, ndim):
+    n_q = q_t8.shape[1]
+    dist = torch.full((n_q,), float("inf"), dtype=torch.float32,
+                      device=q_t8.device)
+    idx = torch.zeros(n_q, dtype=torch.int32, device=q_t8.device)
+    for qs, k, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+        # min over a dim returns the FIRST minimum, and a later tile only
+        # wins when strictly nearer: the lowest rank wins ties (argmin)
+        best, arg = dist2.min(dim=1)
+        take = best < dist[qs]
+        dist[qs] = torch.where(take, best, dist[qs])
+        idx[qs] = torch.where(take, (arg + k).to(torch.int32), idx[qs])
+    return dist, idx
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library
+# ---------------------------------------------------------------------------
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "banded.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_lib = None
+_lib_lock = threading.Lock()
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, nq, d, nd, starts, tq, w, ndim, r2, out, stream
+    "banded_count": (_P, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P),
+    # q, nq, d, nd, starts, tq, w, ndim, levels2, out, stream
+    "banded_count3": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    # pts, n, radius2, labels, starts, tq, w, ndim, big, out, stream
+    "banded_min_label": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # q, nq, d, nd, starts, tq, w, ndim, dist, idx, stream
+    "banded_nearest": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the banded kernels build from "
+                       f"{_SRC} with the CUDA toolkit")
+
+
+def build_library() -> Path:
+    """Compile ``csrc/banded.cu`` for sm_90a into ``build/kernels`` (once
+    per source content) and return the shared library's path. The ptxas
+    report (registers, shared memory, spills) lands beside it as .log."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libbanded_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _check(name, tensors, dtypes, device):
+    for (arg, t), dt in zip(tensors.items(), dtypes):
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_window(name, q_t8, n_d, starts, tq, w, ndim):
+    n_q = q_t8.shape[1]
+    if q_t8.dim() != 2 or q_t8.shape[0] != 8:
+        raise ValueError(f"{name}: points must be (8, N), got {tuple(q_t8.shape)}")
+    if ndim not in (3, 4, 5, 6):
+        raise ValueError(f"{name}: ndim {ndim} not in (3, 4, 5, 6)")
+    if tq <= 0 or n_q % tq or starts.shape != (n_q // tq,):
+        raise ValueError(f"{name}: {n_q} queries, tq {tq} and "
+                         f"{tuple(starts.shape)} window starts disagree")
+    if not 0 < w <= n_d:
+        raise ValueError(f"{name}: window {w} outside (0, {n_d}]")
+    if q_t8.is_cuda and (tq % _CUDA_BLOCK or w % _CUDA_BLOCK):
+        raise ValueError(f"{name}: the CUDA kernel needs tq ({tq}) and w "
+                         f"({w}) in multiples of {_CUDA_BLOCK}")
+
+
+def _launch(name, fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def banded_tile_count(q_t8, d_t8, starts, r2: float, tq: int, w: int,
+                      ndim: int = 3) -> torch.Tensor:
+    """Per query: data points of its block's window with squared distance
+    <= ``r2`` -> (Nq,) int32. Replaces ``pallas_kernels.banded_tile_count``."""
+    name = "banded_tile_count"
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
+           (torch.float32, torch.float32, torch.int32), q_t8.device)
+    if not q_t8.is_cuda:
+        return count_plain(q_t8, d_t8, starts, r2, tq, w, ndim)
+    out = torch.empty(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, load_library().banded_count, q_t8.data_ptr(),
+                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
+                starts.data_ptr(), tq, w, ndim, float(r2), out.data_ptr(),
+                _stream(q_t8.device))
+    return out
+
+
+def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
+                       ndim: int = 3) -> torch.Tensor:
+    """Counts at three squared radii ``levels2`` (3,) f32 -> (Nq, 3) int32.
+    Replaces ``pallas_kernels.banded_tile_count3``."""
+    name = "banded_tile_count3"
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts,
+                  "levels2": levels2},
+           (torch.float32, torch.float32, torch.int32, torch.float32),
+           q_t8.device)
+    if levels2.shape != (3,):
+        raise ValueError(f"{name}: levels2 must be (3,), got {tuple(levels2.shape)}")
+    if not q_t8.is_cuda:
+        return count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim)
+    out = torch.empty((q_t8.shape[1], 3), dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, load_library().banded_count3, q_t8.data_ptr(),
+                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
+                starts.data_ptr(), tq, w, ndim, levels2.data_ptr(),
+                out.data_ptr(), _stream(q_t8.device))
+    return out
+
+
+def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
+                          ndim: int, big: int) -> torch.Tensor:
+    """Per query: the minimum label over window points within
+    max(radius2_q, radius2_d), else ``big`` -> (N,) int32. Replaces
+    ``pallas_kernels.banded_tile_min_label``."""
+    name = "banded_tile_min_label"
+    n = pts_t8.shape[1]
+    _check_window(name, pts_t8, n, starts, tq, w, ndim)
+    _check(name, {"pts_t8": pts_t8, "radius2": radius2, "labels": labels,
+                  "starts": starts},
+           (torch.float32, torch.float32, torch.int32, torch.int32),
+           pts_t8.device)
+    if radius2.shape != (n,) or labels.shape != (n,):
+        raise ValueError(f"{name}: radius2 and labels must be ({n},)")
+    if not pts_t8.is_cuda:
+        return min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim,
+                               big)
+    out = torch.empty(n, dtype=torch.int32, device=pts_t8.device)
+    with torch.cuda.device(pts_t8.device):
+        _launch(name, load_library().banded_min_label, pts_t8.data_ptr(), n,
+                radius2.data_ptr(), labels.data_ptr(), starts.data_ptr(), tq,
+                w, ndim, int(big), out.data_ptr(), _stream(pts_t8.device))
+    return out
+
+
+def banded_tile_nearest(q_t8, d_t8, starts, tq: int, w: int, ndim: int = 3):
+    """Per query: the nearest window point -> (dist2 (Nq,) f32, global data
+    rank (Nq,) int32); the lowest rank wins ties. Replaces
+    ``pallas_kernels.banded_tile_nearest``."""
+    name = "banded_tile_nearest"
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
+           (torch.float32, torch.float32, torch.int32), q_t8.device)
+    if not q_t8.is_cuda:
+        return nearest_plain(q_t8, d_t8, starts, tq, w, ndim)
+    n_q = q_t8.shape[1]
+    dist = torch.empty(n_q, dtype=torch.float32, device=q_t8.device)
+    idx = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, load_library().banded_nearest, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(), tq, w,
+                ndim, dist.data_ptr(), idx.data_ptr(), _stream(q_t8.device))
+    return dist, idx
+
+
+PLAIN = {
+    "banded_tile_count": count_plain,
+    "banded_tile_count3": count3_plain,
+    "banded_tile_min_label": min_label_plain,
+    "banded_tile_nearest": nearest_plain,
+}

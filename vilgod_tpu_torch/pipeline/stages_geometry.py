@@ -1,0 +1,425 @@
+"""Geometry stages 1-3 (ground masking, entropy, clustering); the port of
+the single-device paths of ``vilgod_tpu/pipeline/stages_geometry.py``.
+
+Each stage is ``stage(state, cfg, **args)`` over the device-resident
+buffers of a :class:`SequenceState`; derived per-point buffers are born on
+the state's device and only the per-detection tables reach the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ground.patchwork import ground_config_from_cfg, segment_sequence
+from ..ops import random as jrandom
+from ..ops import segment as seg_ops
+from ..ops.banded import CELL
+from ..ops.cluster import dbscan_labels, dbscan_labels_paged, paged_cell_sort
+from ..ops.entropy import entropy_sequence
+from ..ops.neighbors import knn_labels, knn_labels_paged, radius_count_self
+from ..ops.transforms import apply_transform
+from .state import SequenceState
+
+
+def frame_bucket(n_frames: int, bucket: int = 8) -> int:
+    """Round the frame count up to a multiple of 8 (>= 8), the JAX
+    package's whole-sequence shape bucket (it fixes the padded frame count
+    and so the clustering chunk)."""
+    return max(-(-n_frames // bucket) * bucket, bucket)
+
+
+def _transforms_to_ref(state: SequenceState, f_pad: int) -> torch.Tensor:
+    t = np.stack([state.transform_to_ref(f) for f in range(state.n_frames)])
+    if f_pad > state.n_frames:
+        t = np.concatenate([t, np.tile(np.eye(4, dtype=t.dtype),
+                                       (f_pad - state.n_frames, 1, 1))])
+    return torch.from_numpy(t.astype(np.float32)).to(state.torch_device)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: mask_ground_points
+# ---------------------------------------------------------------------------
+
+def _compact_sequence(points, mask, ground, transforms, cap_ng: int):
+    """Compact every frame's non-ground points into the front of a fixed
+    buffer, in world ("ref") coordinates. Returns (ng_xyz (F, N, 3),
+    ng_mask (F, N), ng_src (F, N), counts (F,))."""
+    f, p = mask.shape
+    dev = mask.device
+    keep = mask & ~ground
+    cnt = torch.clamp(keep.sum(dim=1, dtype=torch.int32), max=cap_ng)
+    pos = torch.where(keep, torch.cumsum(keep.to(torch.int32), 1,
+                                         dtype=torch.int32) - 1, cap_ng)
+    pos = torch.clamp(pos, max=cap_ng).long()
+    idx = torch.arange(p, dtype=torch.int32, device=dev).expand(f, p)
+    src = torch.full((f, cap_ng + 1), -1, dtype=torch.int32, device=dev)
+    src.scatter_(1, pos, torch.where(keep, idx, -1))
+    src = src[:, :cap_ng]
+    valid = src >= 0
+    pts_ref = apply_transform(points[..., :3], transforms)
+    gathered = torch.gather(pts_ref, 1, torch.clamp(src, min=0).long()
+                            [..., None].expand(f, cap_ng, 3))
+    ng_xyz = torch.where(valid[..., None], gathered, 0.0)
+    return ng_xyz, valid, src, cnt
+
+
+def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
+                       z_offset: float = 1.723, **_):
+    """Patchwork++-style ground segmentation scanned over the frames, then
+    the non-ground compaction. Only the (F,) occupancy counts reach the
+    host (they pick the shape bucket of the later stages)."""
+    if state.done.get("mask_ground_points"):
+        return
+    gcfg = ground_config_from_cfg(cfg, min_range=min_range)
+    f_total = state.n_frames
+    f_pad = frame_bucket(f_total)
+    n_pts = state.points_bucket()
+    cap_ng = state.caps.max_ng_points
+    chains = int(cfg.get("parallel", {}).get("ground_chains", 1))
+    if chains > 1 and f_pad % chains == 0 and f_pad // chains >= 8:
+        # the JAX package runs segment_sequence_chained here, whose masks
+        # differ from the single scan's at chain heads
+        raise NotImplementedError(
+            "parallel.ground_chains > 1 is not ported to vilgod_tpu_torch "
+            "yet: ROADMAP queue 1 item 11 (multi-GPU)")
+    points = state.device("points", f_pad, n_pts)
+    mask = state.device("points_mask", f_pad, n_pts)
+    ground = segment_sequence(points, mask, gcfg, z_offset)[0] & mask
+    ng_xyz, ng_mask, ng_src, cnts = _compact_sequence(
+        points, mask, ground, _transforms_to_ref(state, f_pad), cap_ng)
+    state.put_device("ground_mask", ground, f_pad, n_pts)
+    state.put_device("ng_xyz", ng_xyz, f_pad, cap_ng)
+    state.put_device("ng_mask", ng_mask, f_pad, cap_ng)
+    state.put_device("ng_src", ng_src, f_pad, cap_ng)
+    state._ng_counts = cnts[:f_total].cpu().numpy()
+    state.done["mask_ground_points"] = True
+
+
+def rebuild_ng_buffers(state: SequenceState):
+    """Recompute the non-ground buffers from the raw frames and the
+    (checkpoint-loaded) ground masks."""
+    f_total = state.n_frames
+    f_pad = frame_bucket(f_total)
+    n_pts = state.points_bucket()
+    cap_ng = state.caps.max_ng_points
+    ng_xyz, ng_mask, ng_src, cnts = _compact_sequence(
+        state.device("points", f_pad, n_pts),
+        state.device("points_mask", f_pad, n_pts),
+        state.device("ground_mask", f_pad, n_pts),
+        _transforms_to_ref(state, f_pad), cap_ng)
+    state.put_device("ng_xyz", ng_xyz, f_pad, cap_ng)
+    state.put_device("ng_mask", ng_mask, f_pad, cap_ng)
+    state.put_device("ng_src", ng_src, f_pad, cap_ng)
+    state._ng_counts = cnts[:f_total].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: calculate_entropy_scores
+# ---------------------------------------------------------------------------
+
+def _frame_valid(f_total: int, f_pad: int, device) -> torch.Tensor:
+    fv = torch.zeros(f_pad, dtype=torch.bool, device=device)
+    fv[:f_total] = True
+    return fv
+
+
+def calculate_entropy_scores(state: SequenceState, cfg,
+                             n_neighbouring_frames: int = 15,
+                             skip_frames: int = 1,
+                             max_neighbor_point_dist: float = 0.3,
+                             max_neighbor_points: int = 1000,
+                             include_ground_points: bool = False,
+                             force: bool = False, **_):
+    """MODEST-style ephemerality scores over a sliding frame window.
+    ``include_ground_points`` fills the neighbour window with the FULL
+    world-frame cloud; scored points stay the non-ground set."""
+    if state.done.get("calculate_entropy_scores") and not force:
+        return
+    f_total = state.n_frames
+    f_pad = frame_bucket(f_total)
+    n_ng = state.ng_bucket()
+    window = min(n_neighbouring_frames, f_total)
+    fv = _frame_valid(f_total, f_pad, state.torch_device)
+    kw = dict(window=window, skip_frames=skip_frames,
+              radius=max_neighbor_point_dist,
+              max_neighbor_points=max_neighbor_points)
+    if include_ground_points:
+        n_pts = state.points_bucket()
+        full_ref = apply_transform(state.device("points", f_pad, n_pts)[..., :3],
+                                   _transforms_to_ref(state, f_pad))
+        kw.update(data_frames=full_ref,
+                  data_masks=state.device("points_mask", f_pad, n_pts))
+    scores = entropy_sequence(state.device("ng_xyz", f_pad, n_ng),
+                              state.device("ng_mask", f_pad, n_ng), fv, **kw)
+    state.put_device("ng_entropy", scores, f_pad, n_ng)
+    state.done["calculate_entropy_scores"] = True
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: spatial_clustering
+# ---------------------------------------------------------------------------
+
+def frame_select_stats_all(ng_xyz, ng_mask, ng_entropy, frame_valid):
+    """Per-frame selection inputs, computed once per frame:
+    (has_neighbor (F, N), dense_moving (F, N), entropy_mask (F, N)).
+
+    Points with no same-cloud neighbour within 0.2 m drop out; moving
+    points (entropy < 0.6) re-admit only with >= 2 moving neighbours
+    within sqrt(0.1) m."""
+    out = ([], [], [])
+    masks = ng_mask & frame_valid[:, None]
+    for f in range(ng_xyz.shape[0]):
+        xyz, m, ent = ng_xyz[f], masks[f], ng_entropy[f]
+        counts = radius_count_self(xyz, m, 0.2, max_count=100)
+        entropy_mask = m & (ent < 0.6)
+        moving = radius_count_self(xyz, entropy_mask, float(np.sqrt(0.1)),
+                                   max_count=4)
+        for acc, v in zip(out, (counts >= 1, moving >= 2, entropy_mask)):
+            acc.append(v)
+    return tuple(torch.stack(a) for a in out)
+
+
+def select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid, fnr: int,
+                         seed: int, stats, n_frames_window: int, cap_in: int):
+    """Frame ``fnr``'s compacted n-frame 5-D cluster input [xyz, entropy,
+    0.1 * frame offset]. The 1/n subsample is a Bernoulli(1/n) draw per
+    point from the JAX package's threefry keys (bit-identical draws).
+    Returns (features (cap_in, 5), mask (cap_in,), src_frame, src_index)."""
+    f_total, n = ng_xyz.shape[:2]
+    dev = ng_xyz.device
+    f_real = int(frame_valid.sum())
+    base_key = jrandom.PRNGKey(seed)
+    lo = min(max(fnr, 0), max(f_real - n_frames_window, 0))
+    feats, keeps = [], []
+    for rel in range(n_frames_window):
+        f = min(lo + rel, f_total - 1)
+        valid = bool(frame_valid[f]) and lo + rel == f
+        m = ng_mask[f] & valid
+        key = jrandom.fold_in(jrandom.fold_in(base_key, fnr), rel)
+        rand_keep = jrandom.uniform(key, n, device=dev) < (1.0 / n_frames_window)
+        has_nbr, dense_moving, entropy_mask = (s[f] for s in stats)
+        em = entropy_mask & valid
+        keep = rand_keep & m & has_nbr
+        keep = torch.where(em, dense_moving & m, keep)
+        offset = (torch.tensor(rel, dtype=torch.float32)
+                  * torch.tensor(0.1, dtype=torch.float32))
+        feats.append(torch.cat([ng_xyz[f], ng_entropy[f][:, None],
+                                offset.to(dev).expand(n, 1)], dim=1))
+        keeps.append(keep)
+    feats = torch.cat(feats)
+    keep = torch.cat(keeps)
+    # compaction into the fixed cluster-input buffer (stable: kept points
+    # first, in frame/row order)
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)[:cap_in]
+    features = feats[order]
+    feat_mask = torch.arange(cap_in, device=dev) < keep.sum()
+    # provenance per slot: which (frame, ng row) it came from
+    src_frame = (lo + order // n).to(torch.int32)
+    src_index = (order % n).to(torch.int32)
+    return features, feat_mask, src_frame, src_index
+
+
+def _post(lab_raw_in, probs, ngm, xyz, ent, prob_threshold, ephe_percentile,
+          ephe_min_score, max_clusters, capacity):
+    """One frame's label compaction, gather table and detection stats from
+    ONE stable argsort of the raw labels."""
+    dev = lab_raw_in.device
+    lab_raw = torch.where(probs < prob_threshold, -1, lab_raw_in)
+    n_pts = lab_raw.shape[0]
+    valid0 = ngm & (lab_raw >= 0)
+    big = 2 ** 30
+    key_raw = torch.where(valid0, lab_raw, big)
+    order = torch.argsort(key_raw, stable=True)
+    key_s = key_raw[order]
+    is_first = torch.cat([key_s[:1] < big,
+                          (key_s[1:] != key_s[:-1]) & (key_s[1:] < big)])
+    ranks = (torch.cumsum(is_first.to(torch.int32), 0) - 1).to(torch.int32)
+    kept = (key_s < big) & (ranks < max_clusters)
+    # compact ids follow the ascending raw root; clusters past
+    # max_clusters and noise stay -1
+    lab = torch.full((n_pts,), -1, dtype=torch.int32, device=dev)
+    lab[order] = torch.where(kept, ranks, -1)
+    search_key = torch.where(kept, ranks, max_clusters).contiguous()
+    seg_ids = torch.arange(max_clusters, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(search_key, seg_ids).to(torch.int32)
+    ends = torch.searchsorted(search_key, seg_ids, right=True).to(torch.int32)
+    cnt = ends - starts
+    pos = (torch.arange(n_pts, dtype=torch.int32, device=dev)
+           - starts[torch.clamp(search_key, max=max_clusters - 1).long()])
+    in_table = kept & (pos < capacity)
+    flat = torch.where(in_table, search_key * capacity + pos,
+                       max_clusters * capacity).long()
+    table = torch.full((max_clusters * capacity + 1,), -1, dtype=torch.int32,
+                       device=dev)
+    table[flat] = torch.where(in_table, order.to(torch.int32), -1)
+    table = table[: max_clusters * capacity].reshape(max_clusters, capacity)
+    valid = ngm & (lab >= 0)
+    det_center = seg_ops.seg_median_by_label(xyz, lab, valid, max_clusters,
+                                             runs=(starts, cnt))
+    p = seg_ops.seg_percentile_by_label(ent, lab, valid, max_clusters,
+                                        ephe_percentile, runs=(starts, cnt))
+    det_static = p > ephe_min_score
+    return lab, probs, cnt, det_center, det_static, table
+
+
+def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
+                         f0: int, seed: int, chunk: int = 8,
+                         n_frames_window: int = 2, cap_in: int = 65536,
+                         eps: float = 0.15, min_samples: int = 5,
+                         min_cluster_size: int = 15,
+                         prob_threshold: float = 0.3,
+                         ephe_percentile: float = 30.0,
+                         ephe_min_score: float = 0.5,
+                         max_clusters: int = 256, capacity: int = 4096,
+                         direct_transfer: bool = True):
+    """Cluster ``chunk`` consecutive frames. Big pages (``cap_in >=
+    16384``) run ONE paged clustering and ONE paged label transfer for the
+    whole chunk; small pages cluster frame by frame. Returns the per-frame
+    (labels, probs, det_n, det_center, det_static, table), each stacked
+    over the chunk."""
+    sel = [select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid,
+                                f0 + i, seed, stats, n_frames_window, cap_in)
+           for i in range(chunk)]
+    feats, fmask, src_f, src_i = (torch.stack(x) for x in zip(*sel))
+    n_ng = ng_xyz.shape[1]
+    dev = ng_xyz.device
+    chunk_xyz = ng_xyz[f0:f0 + chunk]
+    chunk_ngm = ng_mask[f0:f0 + chunk]
+    chunk_ent = ng_entropy[f0:f0 + chunk]
+    if cap_in >= 16384:
+        flat_feats = feats.reshape(chunk * cap_in, 5)
+        flat_mask = fmask.reshape(chunk * cap_in)
+        page_ids = torch.arange(chunk, dtype=torch.int32, device=dev)
+        pages = page_ids.repeat_interleave(cap_in)
+        # per-page grid origin = the frame WINDOW's corner: it covers the
+        # selected data and the frame's full query cloud, so the transfer
+        # reuses the data sort with a shared grid
+        f_real = int(frame_valid.sum())
+        corners = []
+        for i in range(chunk):
+            lo = min(max(f0 + i, 0), max(f_real - n_frames_window, 0))
+            mins = []
+            for rel in range(n_frames_window):
+                f = min(lo + rel, ng_xyz.shape[0] - 1)
+                m = ng_mask[f] & frame_valid[f] & (lo + rel == f)
+                mins.append(torch.where(m[:, None], ng_xyz[f][:, :2],
+                                        1e9).amin(dim=0))
+            mn = torch.stack(mins).amin(dim=0)
+            corners.append(torch.where(mn >= 1e9, 0.0, mn))
+        orig = (torch.floor(torch.stack(corners) / CELL) - 1.0) * CELL
+        presorted = paged_cell_sort(flat_feats, flat_mask, pages, chunk,
+                                    origins=orig)
+        raw_labels, raw_probs = dbscan_labels_paged(
+            flat_feats, flat_mask, pages, chunk, eps=eps,
+            min_samples=min_samples, min_cluster_size=min_cluster_size,
+            presorted=presorted)
+        # a selected point's nearest data point is itself at distance 0, so
+        # its label/probability copy back through the selection provenance
+        # and only the unselected remainder runs the kNN pass
+        nq = chunk * n_ng
+        if direct_transfer:
+            page_of_src = (src_f - f0).reshape(-1)
+            direct = fmask.reshape(-1) & (page_of_src == pages)
+            tgt = torch.where(direct, page_of_src * n_ng + src_i.reshape(-1),
+                              nq).long()
+            lab_direct = torch.full((nq + 1,), -1, dtype=torch.int32,
+                                    device=dev)
+            lab_direct[tgt] = torch.where(direct, raw_labels, -1)
+            prob_direct = torch.zeros(nq + 1, dtype=raw_probs.dtype,
+                                      device=dev)
+            prob_direct[tgt] = torch.where(direct, raw_probs, 0.0)
+            covered = torch.zeros(nq + 1, dtype=torch.bool, device=dev)
+            covered[tgt] = direct
+            lab_direct, prob_direct = lab_direct[:nq], prob_direct[:nq]
+            covered = covered[:nq]
+        else:  # reference formulation: every point goes through the kNN
+            covered = torch.zeros(nq, dtype=torch.bool, device=dev)
+        q_pages = page_ids.repeat_interleave(n_ng)
+        q_mask = chunk_ngm.reshape(nq) & ~covered
+        labels_k, probs_k = knn_labels_paged(
+            chunk_xyz.reshape(nq, 3), q_mask, q_pages, flat_feats[:, :3],
+            flat_mask, pages, chunk, raw_labels, raw_probs,
+            dist_threshold=0.2, d_presorted=presorted, origins=orig)
+        if direct_transfer:
+            labels_k = torch.where(covered, lab_direct, labels_k)
+            probs_k = torch.where(covered, prob_direct, probs_k)
+        labels = labels_k.reshape(chunk, n_ng)
+        probs = probs_k.reshape(chunk, n_ng)
+    else:
+        # small pages: per-frame clustering and label transfer
+        lp = []
+        for i in range(chunk):
+            raw_l, raw_p = dbscan_labels(feats[i], fmask[i], eps=eps,
+                                         min_samples=min_samples,
+                                         min_cluster_size=min_cluster_size)
+            lp.append(knn_labels(chunk_xyz[i], chunk_ngm[i], feats[i][:, :3],
+                                 fmask[i], raw_l, raw_p, dist_threshold=0.2))
+        labels = torch.stack([x[0] for x in lp])
+        probs = torch.stack([x[1] for x in lp])
+
+    outs = [_post(labels[i], probs[i], chunk_ngm[i], chunk_xyz[i],
+                  chunk_ent[i], prob_threshold, ephe_percentile,
+                  ephe_min_score, max_clusters, capacity)
+            for i in range(chunk)]
+    return [torch.stack(x) for x in zip(*outs)]
+
+
+def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
+                       force: bool = False, **_):
+    """Spatio-temporal density clustering + detection tables over chunks of
+    frames of the resident buffers."""
+    if state.done.get("spatial_clustering") and not force:
+        return
+    caps = state.caps
+    f_total = state.n_frames
+    pre = cfg.get("preprocessor", {})
+    model = pre.get("clustering", {}).get("model", {})
+    ent_f = pre.get("clustering", {}).get("entropy_score_filter", {})
+    cap_in = cfg.get("capacity", {}).get("max_cluster_input", 65536)
+
+    f_pad = frame_bucket(f_total)
+    n_ng = state.ng_bucket()
+    fv = _frame_valid(f_total, f_pad, state.torch_device)
+    dev_args = (state.device("ng_xyz", f_pad, n_ng),
+                state.device("ng_mask", f_pad, n_ng),
+                state.device("ng_entropy", f_pad, n_ng), fv)
+    seed = cfg.get("random_seed", 666)
+
+    stats = frame_select_stats_all(*dev_args)
+    # the cluster input holds ~1/n_frames of each window frame: bounded by
+    # one frame's occupancy bucket
+    cap_in = min(cap_in, max(4096, -(-n_ng // 2048) * 2048))
+    # all frame windows are pages of one chunk (<= 32 pages per chunk)
+    chunk = min(f_pad, 32)
+    kernel_kw = dict(
+        n_frames_window=n_frames, cap_in=cap_in,
+        eps=model.get("cluster_selection_epsilon", 0.15),
+        min_samples=model.get("min_samples", 5),
+        min_cluster_size=model.get("min_cluster_size", 15),
+        prob_threshold=pre.get("clustering", {}).get("propability_threshold",
+                                                     0.3),
+        ephe_percentile=float(ent_f.get("percentile", 30)),
+        ephe_min_score=ent_f.get("min_percentile_pp_score", 0.5),
+        max_clusters=caps.max_clusters, capacity=caps.max_cluster_points)
+
+    starts = list(range(0, f_pad - chunk + 1, chunk))
+    if starts[-1] + chunk < f_pad:
+        # full-size final chunk anchored at the bucket end (pages are
+        # independent, so the overlap recomputes identical frames)
+        starts.append(f_pad - chunk)
+    outs, prev_end = [], 0
+    for f0 in starts:
+        o = cluster_frames_chunk(*dev_args, stats, f0, seed, chunk=chunk,
+                                 **kernel_kw)
+        outs.append([a[prev_end - f0:] for a in o])
+        prev_end = f0 + chunk
+    stacked = [torch.cat([o[i] for o in outs]) for i in range(6)]
+    state.put_device("labels", stacked[0], f_pad, n_ng)
+    state.put_device("probs", stacked[1], f_pad, n_ng)
+    tables = stacked[5]
+    state._dev[("det_tables", f_pad, n_ng)] = (tables, tables >= 0)
+    state.det_n[...] = stacked[2][:f_total].cpu().numpy()
+    state.det_center[...] = stacked[3][:f_total].cpu().numpy()
+    state.det_static[...] = stacked[4][:f_total].cpu().numpy()
+    state.det_valid[...] = state.det_n > 0
+    state.done["spatial_clustering"] = True

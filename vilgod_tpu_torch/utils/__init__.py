@@ -1,0 +1,3 @@
+from .common import resolve_device
+
+__all__ = ["resolve_device"]
