@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.plane import _cross, _dot3
+
 
 class GroundConfig(NamedTuple):
     """Static algorithm parameters. Defaults mirror Patchwork++'s with the
@@ -186,19 +188,6 @@ def _point_patch_ids(xyz: torch.Tensor, cfg: GroundConfig) -> torch.Tensor:
 def _sum64(x: torch.Tensor, dim) -> torch.Tensor:
     """Order-independent f32 sum: accumulate in f64, round once."""
     return x.to(torch.float64).sum(dim=dim).to(torch.float32)
-
-
-def _dot3(p, n):
-    """(..., 3) . (..., 3) -> (...), summed x, y, z in that order."""
-    return p[..., 0] * n[..., 0] + p[..., 1] * n[..., 1] + p[..., 2] * n[..., 2]
-
-
-def _cross(a, b):
-    """jnp.cross's formula over the last axis of (..., 3) tensors."""
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
-                        a0 * b1 - a1 * b0], dim=-1)
 
 
 def _eigh3_smallest(a: torch.Tensor):

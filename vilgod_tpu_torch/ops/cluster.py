@@ -259,3 +259,30 @@ def dbscan_labels_paged(points, mask, pages, n_pages: int, eps: float = 0.15,
     probs = torch.zeros(n, dtype=points.dtype, device=points.device)
     probs[order] = probs_s
     return labels, probs
+
+
+def build_cluster_table(labels, mask, num_clusters: int, capacity: int):
+    """Per-cluster point indices in a padded table: labels (N,) compact in
+    [0, num_clusters) or -1 -> (table (C, P) int32 indices into the cloud,
+    -1 past each cluster's points; table_mask (C, P)). A cluster keeps its
+    first ``capacity`` points in index order."""
+    n = labels.shape[0]
+    dev = labels.device
+    valid = mask & (labels >= 0) & (labels < num_clusters)
+    sort_key = torch.where(valid, labels, num_clusters)
+    # stable: ascending point order within each cluster
+    order = torch.argsort(sort_key, stable=True)
+    sorted_labels = sort_key[order].contiguous()
+    starts = torch.searchsorted(
+        sorted_labels, torch.arange(num_clusters, dtype=sorted_labels.dtype,
+                                    device=dev))
+    pos = (torch.arange(n, device=dev)
+           - starts[torch.clamp(sorted_labels, max=num_clusters - 1).long()])
+    in_table = (sorted_labels < num_clusters) & (pos < capacity)
+    flat = torch.where(in_table, sorted_labels * capacity + pos,
+                       num_clusters * capacity).long()
+    table = torch.full((num_clusters * capacity + 1,), -1, dtype=torch.int32,
+                       device=dev)
+    table[flat] = torch.where(in_table, order.to(torch.int32), -1)
+    table = table[:num_clusters * capacity].reshape(num_clusters, capacity)
+    return table, table >= 0

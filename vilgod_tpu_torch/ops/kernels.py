@@ -13,21 +13,17 @@ rounded on its own (no FMA), so kernel and plain version agree bit for
 bit and sit on the same side of every threshold.
 
 Each wrapper takes its plain version only for CPU tensors. For CUDA
-tensors it launches its kernel from ``csrc/banded.cu`` (built with nvcc
-for sm_90a at first use, into ``build/kernels/``) or raises; it never
+tensors it launches its kernel from ``csrc/banded.cu`` (built by
+``utils/cuda_build.py`` at first use) or raises; it never
 falls back. ``LAUNCHES`` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from ..utils.cuda_build import CudaLibrary, launch, stream_of
 
 # Query tiles of the JAX package (they define the banded block structure,
 # hence the window starts, so the port keeps them): light kernels (count,
@@ -150,16 +146,10 @@ def nearest_plain(q_t8, d_t8, starts, tq, w, ndim):
 # the CUDA library
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "banded.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
-_lib = None
-_lib_lock = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+# -fmad=false: every product and sum rounds on its own, as the plain
+# versions' separate ops do
+LIBRARY = CudaLibrary("banded.cu", {
     # q, nq, d, nd, starts, tq, w, ndim, r2, out, stream
     "banded_count": (_P, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P),
     # q, nq, d, nd, starts, tq, w, ndim, levels2, out, stream
@@ -168,52 +158,7 @@ _SIGNATURES = {
     "banded_min_label": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # q, nq, d, nd, starts, tq, w, ndim, dist, idx, stream
     "banded_nearest": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
-        return str(Path(CUDA_HOME, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the banded kernels build from "
-                       f"{_SRC} with the CUDA toolkit")
-
-
-def build_library() -> Path:
-    """Compile ``csrc/banded.cu`` for sm_90a into ``build/kernels`` (once
-    per source content) and return the shared library's path. The ptxas
-    report (registers, shared memory, spills) lands beside it as .log."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libbanded_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def load_library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+}, extra_flags=("-fmad=false",))
 
 
 def _check(name, tensors, dtypes, device):
@@ -243,14 +188,8 @@ def _check_window(name, q_t8, n_d, starts, tq, w, ndim):
 
 
 def _launch(name, fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launch(fn, *args)
     LAUNCHES[name] += 1
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -269,10 +208,10 @@ def banded_tile_count(q_t8, d_t8, starts, r2: float, tq: int, w: int,
         return count_plain(q_t8, d_t8, starts, r2, tq, w, ndim)
     out = torch.empty(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, load_library().banded_count, q_t8.data_ptr(),
+        _launch(name, LIBRARY.load().banded_count, q_t8.data_ptr(),
                 q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
                 starts.data_ptr(), tq, w, ndim, float(r2), out.data_ptr(),
-                _stream(q_t8.device))
+                stream_of(q_t8.device))
     return out
 
 
@@ -292,10 +231,10 @@ def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
         return count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim)
     out = torch.empty((q_t8.shape[1], 3), dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, load_library().banded_count3, q_t8.data_ptr(),
+        _launch(name, LIBRARY.load().banded_count3, q_t8.data_ptr(),
                 q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
                 starts.data_ptr(), tq, w, ndim, levels2.data_ptr(),
-                out.data_ptr(), _stream(q_t8.device))
+                out.data_ptr(), stream_of(q_t8.device))
     return out
 
 
@@ -318,9 +257,9 @@ def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
                                big)
     out = torch.empty(n, dtype=torch.int32, device=pts_t8.device)
     with torch.cuda.device(pts_t8.device):
-        _launch(name, load_library().banded_min_label, pts_t8.data_ptr(), n,
+        _launch(name, LIBRARY.load().banded_min_label, pts_t8.data_ptr(), n,
                 radius2.data_ptr(), labels.data_ptr(), starts.data_ptr(), tq,
-                w, ndim, int(big), out.data_ptr(), _stream(pts_t8.device))
+                w, ndim, int(big), out.data_ptr(), stream_of(pts_t8.device))
     return out
 
 
@@ -338,9 +277,9 @@ def banded_tile_nearest(q_t8, d_t8, starts, tq: int, w: int, ndim: int = 3):
     dist = torch.empty(n_q, dtype=torch.float32, device=q_t8.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, load_library().banded_nearest, q_t8.data_ptr(), n_q,
+        _launch(name, LIBRARY.load().banded_nearest, q_t8.data_ptr(), n_q,
                 d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(), tq, w,
-                ndim, dist.data_ptr(), idx.data_ptr(), _stream(q_t8.device))
+                ndim, dist.data_ptr(), idx.data_ptr(), stream_of(q_t8.device))
     return dist, idx
 
 

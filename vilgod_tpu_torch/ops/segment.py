@@ -1,8 +1,13 @@
 """Per-label statistics straight from the flat cloud; the port of the
-by-label median and percentile of ``vilgod_tpu/ops/segment.py``."""
+by-label statistics of ``vilgod_tpu/ops/segment.py`` (median, percentile,
+min, max, count and support-function hull area)."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..utils.common import fma32
 
 
 def _label_runs(labels: torch.Tensor, valid: torch.Tensor, num_segments: int):
@@ -71,3 +76,113 @@ def seg_percentile_by_label(values, labels, valid, num_segments: int,
     out = (_take(val_sorted, starts + lo) * (1 - frac)
            + _take(val_sorted, starts + hi) * frac)
     return torch.where(cnt > 0, out, torch.zeros_like(out))
+
+
+def _spare_row_index(labels, valid, num_segments):
+    return torch.where(valid & (labels >= 0), labels, num_segments).long()
+
+
+def _by_label_index(values, labels, valid, num_segments):
+    """Scatter index (invalid points and label -1 -> the spare row
+    ``num_segments``, where JAX's wrapped index -1 lands), expanded to the
+    shape of ``values``."""
+    idx = _spare_row_index(labels, valid, num_segments)
+    if values.dim() == 2:
+        idx = idx[:, None].expand(-1, values.shape[1])
+    return idx
+
+
+def _seg_extreme_by_label(values, labels, valid, num_segments, fill, reduce):
+    start = float("inf") if reduce == "amin" else float("-inf")
+    vmask = valid[:, None] if values.dim() == 2 else valid
+    v = torch.where(vmask, values.to(torch.float32), start)
+    out = torch.full((num_segments + 1,) + tuple(values.shape[1:]), start,
+                     dtype=torch.float32, device=values.device)
+    out.scatter_reduce_(0, _by_label_index(values, labels, valid,
+                                           num_segments), v, reduce=reduce)
+    out = out[:num_segments]
+    return torch.where(torch.isfinite(out), out, fill)
+
+
+def seg_min_by_label(values, labels, valid, num_segments: int,
+                     fill: float = 0.0) -> torch.Tensor:
+    """Per-label masked minimum by scatter-min; ``fill`` where a label has
+    no point. values (N,) or (N, F)."""
+    return _seg_extreme_by_label(values, labels, valid, num_segments, fill,
+                                 "amin")
+
+
+def seg_max_by_label(values, labels, valid, num_segments: int,
+                     fill: float = 0.0) -> torch.Tensor:
+    """Per-label masked maximum; see :func:`seg_min_by_label`."""
+    return _seg_extreme_by_label(values, labels, valid, num_segments, fill,
+                                 "amax")
+
+
+def seg_count_by_label(labels, valid, num_segments: int) -> torch.Tensor:
+    """Exact per-label point counts (not capped at a table capacity)."""
+    idx = _spare_row_index(labels, valid, num_segments)
+    cnt = torch.zeros(num_segments + 1, dtype=torch.int64,
+                      device=labels.device)
+    cnt.scatter_add_(0, idx, torch.ones_like(idx))
+    return cnt[:num_segments].to(torch.int32)
+
+
+def linspace0(stop: float, num: int, endpoint: bool = True,
+              device=None) -> torch.Tensor:
+    """``jnp.linspace(0, stop, num, endpoint)`` in float32 as XLA compiles
+    it: the division by the step count becomes a product with its f32
+    reciprocal, folded into ``stop``, so point i is ``i * f32(stop *
+    f32(1 / div))``, and ``stop`` itself is appended exactly."""
+    f32 = torch.float32
+    div = num - 1 if endpoint else num
+    recip = torch.tensor(1.0, dtype=f32) / torch.tensor(float(div), dtype=f32)
+    delta = torch.tensor(stop, dtype=f32) * recip
+    out = torch.arange(div, dtype=f32) * delta
+    if endpoint:
+        out = torch.cat([out, torch.tensor([stop], dtype=f32)])
+    return out.to(device)
+
+
+def hull_directions(n_angles: int, device=None) -> torch.Tensor:
+    """(A, 2) unit directions at ``jnp.linspace(0, 2 pi, A,
+    endpoint=False)``: f32 angles as XLA builds them, their cosine and sine
+    taken in float64 and rounded once."""
+    ang = linspace0(2 * math.pi, n_angles, endpoint=False).double()
+    return torch.stack([torch.cos(ang), torch.sin(ang)],
+                       dim=1).to(torch.float32).to(device)
+
+
+def hull_area_by_label(points_xy, labels, valid, num_segments: int,
+                       n_angles: int = 720, chunk: int = 90) -> torch.Tensor:
+    """Per-label convex-hull area via support functions straight from the
+    flat cloud: the (N, A) projections stream in ``chunk``-angle slices
+    scatter-maxed into a (C, A) support table, and the polygon of
+    consecutive support-line intersections gives the area. The projections
+    are ``x cos + y sin`` with the second product fused into the sum, as
+    XLA's dot rounds them, and the polygon sum accumulates in float64, so
+    the card and the CPU agree."""
+    dev = points_xy.device
+    dirs = hull_directions(n_angles, dev)
+    pts = torch.where(valid[:, None], points_xy.to(torch.float32), 0.0)
+    idx = _spare_row_index(labels, valid, num_segments)
+    h = torch.empty((num_segments, n_angles), dtype=torch.float32, device=dev)
+    for a0 in range(0, n_angles, chunk):
+        d = dirs[a0:a0 + chunk]
+        # XLA's dot: x cos, then y sin fused into it (one rounding)
+        proj = fma32(pts[:, 1:2], d[None, :, 1], pts[:, 0:1] * d[None, :, 0])
+        proj = torch.where(valid[:, None], proj, float("-inf"))
+        sup = torch.full((num_segments + 1, d.shape[0]), float("-inf"),
+                         dtype=torch.float32, device=dev)
+        sup.scatter_reduce_(0, idx[:, None].expand_as(proj), proj,
+                            reduce="amax")
+        h[:, a0:a0 + chunk] = sup[:num_segments]
+    h_next = torch.roll(h, -1, dims=1)
+    d1, d2 = dirs, torch.roll(dirs, -1, dims=0)
+    det = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+    vx = (h * d2[:, 1] - h_next * d1[:, 1]) / det
+    vy = (h_next * d1[:, 0] - h * d2[:, 0]) / det
+    terms = vx * torch.roll(vy, -1, dims=1) - torch.roll(vx, -1, dims=1) * vy
+    area = 0.5 * torch.abs(terms.to(torch.float64).sum(dim=1)).to(torch.float32)
+    cnt = seg_count_by_label(labels, valid, num_segments)
+    return torch.where((cnt >= 3) & torch.isfinite(area), area, 0.0)

@@ -17,8 +17,10 @@ import numpy as np
 import torch
 
 from ..utils.common import resolve_device
-from .stages_geometry import (calculate_entropy_scores, mask_ground_points,
-                              rebuild_ng_buffers, spatial_clustering)
+from .stages_classify import classification
+from .stages_geometry import (calculate_entropy_scores, filter_detections,
+                              mask_ground_points, rebuild_ng_buffers,
+                              spatial_clustering)
 from .state import Capacity, SequenceState
 
 log = logging.getLogger("vilgod_tpu_torch")
@@ -27,17 +29,17 @@ STAGE_REGISTRY = {
     "mask_ground_points": mask_ground_points,
     "calculate_entropy_scores": calculate_entropy_scores,
     "spatial_clustering": spatial_clustering,
+    "filter_detections": filter_detections,
+    "classification": classification,
 }
 
 # stages of the JAX pipeline the port does not have yet -> the ROADMAP
 # item (queue 1) that ports them
 NOT_PORTED = {
-    "filter_detections": "ROADMAP queue 1 item 6 (filter)",
     "track_clusters": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
     "fit_bounding_boxes_simple": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
     "propagate_labels": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
     "evaluate_sequence": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
-    "classification": "ROADMAP queue 1 item 8 (classification)",
 }
 
 
@@ -89,6 +91,8 @@ class ZeroShotDetector:
                 continue
             fn = _stage(task_name)
             args = dict(pipeline[task_name])
+            if task_name == "classification":
+                args["clip_model"] = self.clip_model
             t0 = time.perf_counter()
             before = self.state.done.get(task_name, False)
             fn(self.state, self.cfg, **args)

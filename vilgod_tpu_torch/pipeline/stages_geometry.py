@@ -1,5 +1,5 @@
-"""Geometry stages 1-3 (ground masking, entropy, clustering); the port of
-the single-device paths of ``vilgod_tpu/pipeline/stages_geometry.py``.
+"""Geometry stages 1-4 (ground masking, entropy, clustering, filter); the
+port of the single-device paths of ``vilgod_tpu/pipeline/stages_geometry.py``.
 
 Each stage is ``stage(state, cfg, **args)`` over the device-resident
 buffers of a :class:`SequenceState`; derived per-point buffers are born on
@@ -17,6 +17,7 @@ from ..ops.banded import CELL
 from ..ops.cluster import dbscan_labels, dbscan_labels_paged, paged_cell_sort
 from ..ops.entropy import entropy_sequence
 from ..ops.neighbors import knn_labels, knn_labels_paged, radius_count_self
+from ..ops.plane import _dot3, fit_ground_plane
 from ..ops.transforms import apply_transform
 from .state import SequenceState
 
@@ -423,3 +424,148 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
     state.det_static[...] = stacked[4][:f_total].cpu().numpy()
     state.det_valid[...] = state.det_n > 0
     state.done["spatial_clustering"] = True
+
+
+# ---------------------------------------------------------------------------
+# Stage 4: filter_detections
+# ---------------------------------------------------------------------------
+
+def _filter_metrics_frame(pts_raw, pts_mask, gnd_mask, t, xyz, ent, lab,
+                          nmask, fnr: int, seed: int, ephe_percentile: float,
+                          ransac_iters: int, max_clusters: int) -> dict:
+    """Per-detection filter metrics of ONE frame: the RANSAC ground plane
+    (keyed by the frame's global index) and, by label straight from the
+    flat cloud, each cluster's z extent, bbox spans, signed plane
+    distances, hull area and entropy percentile."""
+    pts_ref = apply_transform(pts_raw[:, :3], t)
+    gmask = gnd_mask & pts_mask
+    gmask = torch.where(gmask.sum() >= 3, gmask, pts_mask)
+    key = jrandom.fold_in(jrandom.PRNGKey(seed), fnr)
+    plane = fit_ground_plane(pts_ref, gmask, key, iters=ransac_iters)
+    valid = nmask & (lab >= 0)
+    pmin = seg_ops.seg_min_by_label(xyz, lab, valid, max_clusters)
+    pmax = seg_ops.seg_max_by_label(xyz, lab, valid, max_clusters)
+    n = plane[:3]
+    d = (_dot3(xyz, n) + plane[3]) / torch.sqrt(_dot3(n, n))
+    return {
+        "plane": plane,
+        "height": pmax[:, 2] - pmin[:, 2],
+        "size": pmax - pmin,
+        "dmin": seg_ops.seg_min_by_label(d, lab, valid, max_clusters,
+                                         fill=1e9),
+        "dmax": seg_ops.seg_max_by_label(d, lab, valid, max_clusters,
+                                         fill=-1e9),
+        "hull_area": seg_ops.hull_area_by_label(xyz[:, :2], lab, valid,
+                                                max_clusters),
+        "ephe_p": seg_ops.seg_percentile_by_label(ent, lab, valid,
+                                                  max_clusters,
+                                                  ephe_percentile),
+    }
+
+
+def filter_metrics_all(points, points_mask, ground_mask, transforms, ng_xyz,
+                       ng_entropy, labels, ng_mask, seed: int,
+                       ephe_percentile: float, ransac_iters: int = 100,
+                       max_clusters: int = 256):
+    """Filter metrics of every frame, each field stacked over frames."""
+    per = [_filter_metrics_frame(points[f], points_mask[f], ground_mask[f],
+                                 transforms[f], ng_xyz[f], ng_entropy[f],
+                                 labels[f], ng_mask[f], f, seed,
+                                 ephe_percentile, ransac_iters, max_clusters)
+           for f in range(points.shape[0])]
+    return {k: torch.stack([m[k] for m in per]) for k in per[0]}
+
+
+def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
+    """Apply the configured cluster filters to every detection, with the
+    reference's combinator: valid = (all(and) or any(or)) and
+    all(and + required). The metrics run on the device; the combinator
+    stays on the host over (F, C) boolean arrays."""
+    if state.done.get("filter_detections") and not force:
+        return
+    pre = cfg.get("preprocessor", {})
+    filters = pre.get("clustering", {}).get("filters", [])
+    active = pre.get("clustering", {}).get("filters_active", [])
+    caps = state.caps
+    f_total = state.n_frames
+    f_pad = frame_bucket(f_total)
+
+    ephe_percentile = 20.0
+    for flt in filters:
+        if flt["name"] == "filter_by_ephemeral_score" and flt["name"] in active:
+            ephe_percentile = float(flt.get("args", {}).get("percentile", 20))
+
+    n_pts = state.points_bucket()
+    n_ng = state.ng_bucket()
+    # the real frames only (JAX also computes the padded ones, unread)
+    per_frame = filter_metrics_all(
+        *(state.device(k, f_pad, n_pts)[:f_total]
+          for k in ("points", "points_mask", "ground_mask")),
+        _transforms_to_ref(state, f_pad)[:f_total],
+        *(state.device(k, f_pad, n_ng)[:f_total]
+          for k in ("ng_xyz", "ng_entropy", "labels", "ng_mask")),
+        cfg.get("random_seed", 666), ephe_percentile,
+        ransac_iters=cfg.get("capacity", {}).get("ransac_iters", 100),
+        max_clusters=caps.max_clusters)
+    # one download for all fields
+    C = caps.max_clusters
+    packed = torch.cat([v.reshape(f_total, -1).to(torch.float32)
+                        for v in per_frame.values()], dim=1).cpu().numpy()
+    metrics, col = {}, 0
+    for k, v in per_frame.items():
+        width = v[0].numel()
+        metrics[k] = packed[:, col:col + width].reshape(v.shape)
+        col += width
+    state.plane_ref[...] = metrics["plane"]
+
+    n_pts = state.det_n              # (F, C)
+    height = metrics["height"]
+    size = metrics["size"]           # (F, C, 3)
+    dmin, dmax = metrics["dmin"], metrics["dmax"]
+    hull_area = metrics["hull_area"]
+
+    and_v, or_v, req_v = [], [], []
+    for flt in filters:
+        name = flt["name"]
+        if name not in active:
+            continue
+        args = flt.get("args", {})
+        if name == "filter_by_number_points":
+            valid = (n_pts >= args.get("min_points", 0)) & (
+                n_pts <= args.get("max_points", 999999))
+        elif name == "filter_by_height":
+            valid = (height >= args["min_height"]) & (height <= args["max_height"])
+        elif name == "filter_by_plane_distance":
+            # signed directional distance
+            valid = (dmin <= args["max_min_height"]) & (dmax >= args["min_max_height"])
+        elif name == "filter_by_aspect_ratio":
+            mx = np.maximum(size[..., 0], size[..., 1])
+            mn = np.maximum(np.minimum(size[..., 0], size[..., 1]), 1e-9)
+            ar = mx / mn
+            valid = (ar <= args["max_aspect_ratio"]) & (
+                (ar >= args["min_aspect_ratio"])
+                | (size[..., 0] < 1.0) | (size[..., 1] < 1.0))
+        elif name in ("filter_by_volume", "filter_by_area"):
+            vol = name == "filter_by_volume"
+            metric = hull_area * height if vol else hull_area
+            lo = args.get("min_volume" if vol else "min_area", 0.0)
+            valid = (metric >= lo) & (n_pts >= 3)
+            hi = args.get("max_volume" if vol else "max_area")
+            if hi is not None:
+                valid &= metric <= hi
+        elif name == "filter_by_ephemeral_score":
+            valid = ~(metrics["ephe_p"] > args["min_percentile_pp_score"])
+        else:
+            continue  # unknown filters are skipped, as in the reference
+        if args.get("logic") == "and" and args.get("required", False):
+            req_v.append(valid)
+        elif args.get("logic") == "and":
+            and_v.append(valid)
+        elif args.get("logic") == "or":
+            or_v.append(valid)
+    shape = (f_total, C)
+    all_and = np.all(and_v, axis=0) if and_v else np.ones(shape, bool)
+    any_or = np.any(or_v, axis=0) if or_v else np.zeros(shape, bool)
+    all_req = np.all(req_v, axis=0) if req_v else np.ones(shape, bool)
+    state.det_valid[...] = (all_and | any_or) & all_req & (n_pts > 0)
+    state.done["filter_detections"] = True

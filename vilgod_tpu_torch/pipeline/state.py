@@ -146,6 +146,10 @@ class SequenceState:
         """Sensor -> world-of-frame-0."""
         return np.linalg.inv(self.poses[0]) @ self.poses[fnr]
 
+    def transform_to_ego(self, fnr: int) -> np.ndarray:
+        """World-of-frame-0 -> sensor."""
+        return np.linalg.inv(self.poses[fnr]) @ self.poses[0]
+
     def set_frame(self, fnr: int, points: np.ndarray, pose: np.ndarray):
         """Store one frame, quantized to int16 on the 5 mm lattice exactly
         as the JAX package does (divide, rint, clip over f32)."""
@@ -253,6 +257,24 @@ class SequenceState:
         n_pts = self.points_bucket()
         self.device("points", f_pad, n_pts)
         self.device("points_mask", f_pad, n_pts)
+
+    def det_tables(self, f_pad: int, n_ng: int):
+        """Device-resident per-frame cluster gather tables (F_pad, C, cap)
+        and their masks. ``spatial_clustering`` leaves them in the cache;
+        after a labels mutation or an ``.npz`` resume they are rebuilt
+        here from the labels."""
+        from ..ops.cluster import build_cluster_table
+
+        key = ("det_tables", f_pad, n_ng)
+        if key not in self._dev:
+            labels = self.device("labels", f_pad, n_ng)
+            ng_mask = self.device("ng_mask", f_pad, n_ng)
+            built = [build_cluster_table(labels[f], ng_mask[f],
+                                         self.caps.max_clusters,
+                                         self.caps.max_cluster_points)
+                     for f in range(f_pad)]
+            self._dev[key] = tuple(torch.stack(t) for t in zip(*built))
+        return self._dev[key]
 
     def ng_bucket(self) -> int:
         """Multiple-of-8192 bucket (>= 8192) of the max per-frame

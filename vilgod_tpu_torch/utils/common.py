@@ -1,4 +1,5 @@
-"""Small shared utilities of the port: its device rule."""
+"""Small shared utilities of the port: its device rule and the float32
+fused multiply-add of XLA's CPU backend."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,12 @@ def resolve_device(device=None) -> torch.device:
             "vilgod_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding, as XLA's CPU backend fuses a
+    product into the sum that follows it: the product of two f32 is exact
+    in float64, so only the f64 sum and its f32 rounding round (double
+    rounding differs from a true fused multiply-add about once in 2**29).
+    The same torch ops give the same bits on the card."""
+    return (a.double() * b.double() + c.double()).float()
