@@ -6,42 +6,59 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit; build the CUDA sources of
-   vilgod_tpu_torch/csrc/ (banded.cu, vit.cu) with nvcc for sm_90a, one
-   nvcc each, started together (timed);
+   vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu) with nvcc for
+   sm_90a, one nvcc each, started together (timed);
 2. card against CPU, first half: the first 4 frames of the scene below
-   through all five stages on the card, classified by a narrow bf16 tower
-   on which the fused attention kernel holds (this run also warms the CUDA
-   context up for phase 3);
-3. the main path: ground -> entropy -> clustering -> filter ->
-   classification through ``run_sequences`` on one 24-frame sequence of the
+   through ground -> entropy -> clustering -> filter -> classification on
+   the card, classified by a narrow bf16 tower on which the fused attention
+   kernel holds (this run also warms the CUDA context up for phase 3);
+3. the main path: all nine stages (ground -> entropy -> clustering ->
+   filter -> tracking -> classification -> boxes -> label propagation ->
+   evaluation) through ``run_sequences`` on one 24-frame sequence of the
    bench's parity scene at the bench's full caps (paged clustering, 24 pages
    x 40960; CLIP batches of 512 clusters = 2048 images) with a ViT-B/16
-   ``ClipWrapper`` in bf16 (random weights from seed 0). Launch counts are
-   zeroed just before and read just after; every kernel of the path must
-   have launched, ``fused_attention_proj`` once per vision layer and
-   classify call. Then the opt-in MLP kernels: one classify batch of this
-   run through the tower with ``VILGOD_FUSED_MLP_BLOCK=1`` and with
-   ``VILGOD_FUSED_MLP=1``; each must launch;
+   ``ClipWrapper`` in bf16 (random weights from seed 0), each stage's
+   seconds printed. Launch counts are zeroed just before and read just
+   after; every kernel of the path must have launched,
+   ``fused_attention_proj`` once per vision layer and classify call. Then
+   the opt-in MLP kernels: one classify batch of this run through the tower
+   with ``VILGOD_FUSED_MLP_BLOCK=1`` and with ``VILGOD_FUSED_MLP=1``; each
+   must launch. Then a geometry-only pass (no CLIP model): stages 1-4, their
+   checkpoint kept, and the nine stages resumed from it, scored with the
+   port's ``evaluate_detections`` (LEVEL_2 APs, bench.py's range);
+3b. the dense configuration: the same scene and caps with an entropy radius
+   of 0.5 m (not bandable: every (frame, window frame) pair is one dense
+   count) and a 16000-point cluster input (per-frame dense DBSCAN and dense
+   label transfer), stages 1-3; its counts zeroed just before and read just
+   after: ``tile_radius_count`` 192 times, the other dense kernels at least
+   24 times each;
 4. kernels against their plain PyTorch versions on the card, on the
-   arguments the main path gave them (captured in phase 3): the banded
-   kernels also on a forced full-width (overflow) call each (counts, labels
-   and indices equal, squared distances bitwise equal), the ViT kernels also
-   on a ragged batch of 3 images (assert_close rtol 1.6e-2, atol 1e-2, mean
-   |diff| < 1e-3); kernel, plain, torch-composite and bound times;
+   arguments the runs gave them (captured in phases 3 and 3b): the banded
+   kernels also on a forced full-width (overflow) call each, the dense
+   kernels also on a ragged call (N not a multiple of 256) each (counts,
+   labels and indices equal, squared distances bitwise equal), the ViT
+   kernels also on a ragged batch of 3 images (assert_close rtol 1.6e-2,
+   atol 1e-2, mean |diff| < 1e-3); kernel, plain, torch-composite and bound
+   times;
 5. card against CPU, second half: the same 4 frames by the port on the CPU
    (the plain versions): ground mask, labels, det_n, det_static and
    det_valid equal, det_center within 1e-4 m, plane_ref within 1e-4, every
    image embedding's cosine with its CPU counterpart >= 0.999, det_cls equal
-   on >= 95 % of valid detections.
+   on >= 95 % of valid detections. Then stages 5 and 7-9 on the CPU over
+   all 24 frames from the card's stage 1-4 checkpoint of the geometry-only
+   pass: det_tid, det_valid, det_cls, det_static_track and the track pool
+   equal, det_box within 1e-4 m, the same boxes per frame, APs within 1e-6.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,8 +78,20 @@ SCENE = dict(n_sequences=1, seed=7, n_frames=24, n_ground=120000,
 CAPS = {"max_points": 196608, "max_ng_points": 131072, "max_clusters": 256,
         "max_cluster_points": 4096, "max_tracks": 1024,
         "max_cluster_input": 65536, "clip_batch": 512}
+# the nine-stage main path (vilgod_tpu/config/presets.py pipeline_active)
 STAGES = ["mask_ground_points", "calculate_entropy_scores",
-          "spatial_clustering", "filter_detections", "classification"]
+          "spatial_clustering", "filter_detections", "track_clusters",
+          "classification", "fit_bounding_boxes_simple", "propagate_labels",
+          "evaluate_sequence"]
+GEOMETRY = STAGES[:4]
+# the 4-frame card-vs-CPU check of stages 1-4 and the classification
+CHECK_STAGES = GEOMETRY + ["classification"]
+# the dense configuration: an entropy radius the banded passes refuse and
+# the largest cluster input below the 16384 paged threshold that no tile
+# divides
+DENSE_RADIUS = 0.5
+DENSE_CLUSTER_INPUT = 16000
+EVAL_RANGE = (-50.0, -20.0, 50.0, 20.0)
 CHECK_FRAMES = 4
 # the card-vs-CPU tower: narrow, bf16, 64-wide heads (the fused path)
 CHECK_CLIP = dict(patch_size=32, vision_width=128, vision_layers=2,
@@ -76,13 +105,19 @@ REPLACES = {
     "fused_attention_proj": "vilgod_tpu/models/vit_kernels.py:193",
     "fused_mlp_block": "vilgod_tpu/models/vit_kernels.py:59",
     "fused_mlp": "vilgod_tpu/models/vit_kernels.py:117",
+    "tile_radius_count": "vilgod_tpu/ops/pallas_kernels.py:93",
+    "tile_radius_count3": "vilgod_tpu/ops/pallas_kernels.py:136",
+    "tile_min_label": "vilgod_tpu/ops/pallas_kernels.py:187",
+    "tile_nearest": "vilgod_tpu/ops/pallas_kernels.py:531",
 }
 OPT_IN = {"fused_mlp_block": "VILGOD_FUSED_MLP_BLOCK",
           "fused_mlp": "VILGOD_FUSED_MLP"}
 # float32 operations per (query, window point) pair: (q - d) and its square
 # per coordinate, the coordinate sums, then each kernel's epilogue
 EPILOGUE_OPS = {"banded_tile_count": 1, "banded_tile_count3": 3,
-                "banded_tile_min_label": 2, "banded_tile_nearest": 1}
+                "banded_tile_min_label": 2, "banded_tile_nearest": 1,
+                "tile_radius_count": 1, "tile_radius_count3": 3,
+                "tile_min_label": 2, "tile_nearest": 1}
 
 
 def log(msg):
@@ -112,7 +147,9 @@ POS = {
     "banded_tile_nearest": dict(q=0, d=1, starts=2, tq=3, w=4, ndim=5),
 }
 OUT_BYTES = {"banded_tile_count": 4, "banded_tile_count3": 12,
-             "banded_tile_min_label": 4, "banded_tile_nearest": 8}
+             "banded_tile_min_label": 4, "banded_tile_nearest": 8,
+             "tile_radius_count": 4, "tile_radius_count3": 12,
+             "tile_min_label": 4, "tile_nearest": 8}
 
 
 class Recorder:
@@ -246,6 +283,132 @@ def check_kernel(name, args, kernels, m, ends=None):
             "shape": {"n_q": n_q, "n_d": n_d or n_q, "w": w, "ndim": ndim,
                       "pairs_scanned": n_q * w, "pairs_needed": pairs,
                       "full_width_check_cols": m}}
+
+
+class DenseRecorder:
+    """Keeps, per dense kernel wrapper, the arguments of its largest call
+    (by query x data points) while ``active``, bound to the wrapper's
+    parameters (positional, defaults applied)."""
+
+    def __init__(self, dense_kernels):
+        self.active, self.calls = False, {}
+        for name in dense_kernels.KERNEL_NAMES:
+            setattr(dense_kernels, name,
+                    self._wrap(name, getattr(dense_kernels, name)))
+
+    def _wrap(self, name, fn):
+        sig = inspect.signature(fn)
+
+        def wrapper(*args, **kwargs):
+            if self.active:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                a = bound.args
+                size = a[0].shape[1] * (a[1].shape[1] if a[1].dim() == 2
+                                        else a[0].shape[1])
+                if name not in self.calls or size > self.calls[name][0]:
+                    self.calls[name] = (size, a)
+            return fn(*args, **kwargs)
+        wrapper.wrapped = fn
+        return wrapper
+
+
+def dense_ragged_args(name, args, n_q=1000, n_d=1500):
+    """The same call on the first ``n_q`` query and ``n_d`` data columns
+    (neither a multiple of 256); the min-label pass has one cloud."""
+    a = list(args)
+    if name == "tile_min_label":
+        a[0] = args[0][:, :n_q].contiguous()
+        a[1], a[2] = args[1][:n_q].contiguous(), args[2][:n_q].contiguous()
+    else:
+        a[0] = args[0][:, :n_q].contiguous()
+        a[1] = args[1][:, :n_d].contiguous()
+    return tuple(a)
+
+
+def dense_composite(name, args):
+    """The same function from ``torch.cdist`` (the matmul form) and a
+    compare or a min: the yardstick the port never calls."""
+    import torch
+
+    if name == "tile_min_label":
+        pts_t8, r2, lab, ndim, big = args
+        p = pts_t8[:ndim].T.contiguous()
+        big_t = torch.tensor(big, dtype=torch.int32, device=p.device)
+
+        def run():
+            d2 = torch.cdist(p, p).square_()
+            joint = torch.maximum(r2[:, None], r2[None, :])
+            return torch.where(d2 <= joint, lab[None, :], big_t).amin(dim=1)
+        return run
+    q_t8, d_t8, *rest = args
+    ndim = rest[-1]
+    q, d = q_t8[:ndim].T.contiguous(), d_t8[:ndim].T.contiguous()
+    if name == "tile_radius_count":
+        r2 = rest[0]
+        return lambda: (torch.cdist(q, d).square_() <= r2).sum(dim=1)
+    if name == "tile_radius_count3":
+        lv = rest[0]
+
+        def run():
+            d2 = torch.cdist(q, d).square_()
+            return torch.stack([(d2 <= lv[k]).sum(dim=1) for k in range(3)],
+                               dim=1)
+        return run
+    return lambda: torch.cdist(q, d).square_().min(dim=1)
+
+
+def check_dense_kernel(name, args, dense_kernels):
+    """Kernel vs plain version on the captured ``args`` and on a ragged
+    call; kernel, plain, composite and bound times. Every query meets every
+    data point, so the operations are the same whatever the data."""
+    import torch
+
+    kernel = getattr(dense_kernels, name).wrapped
+    plain = dense_kernels.PLAIN[name]
+
+    def compare(a):
+        got, want = kernel(*a), plain(*a)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                    if g.dtype == torch.float32 else torch.equal(g, w))
+            if not same:
+                raise AssertionError(f"{name}: kernel != plain version "
+                                     f"({int((g != w).sum())} of {g.numel()})")
+            err = max(err, float((g.double() - w.double()).nan_to_num(0.0)
+                                 .abs().max()))
+        return err
+
+    err = max(compare(args), compare(dense_ragged_args(name, args)))
+    ms = cuda_ms(lambda: kernel(*args), 5)
+    plain_ms = cuda_ms(lambda: plain(*args), 1)
+    composite = dense_composite(name, args)
+    composite()
+    library_ms = cuda_ms(composite, 3)
+    torch.cuda.empty_cache()
+
+    n_q = args[0].shape[1]
+    n_d = n_q if name == "tile_min_label" else args[1].shape[1]
+    ndim = args[3] if name == "tile_min_label" else args[-1]
+    ops = n_q * n_d * (3 * ndim - 1 + EPILOGUE_OPS[name])
+    in_bytes = 4 * ndim * (n_q + (0 if name == "tile_min_label" else n_d))
+    if name == "tile_min_label":
+        in_bytes += 8 * n_q                      # radii and labels
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (in_bytes + OUT_BYTES[name] * n_q) / PEAK_HBM_BYTES * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "vilgod_tpu_torch/csrc/dense.cu",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms,
+            "shape": {"n_q": n_q, "n_d": n_d, "ndim": ndim, "pairs": n_q * n_d,
+                      "ragged_check": [1000, 1000 if name == "tile_min_label"
+                                       else 1500]}}
 
 
 class VitRecorder:
@@ -467,166 +630,11 @@ def print_ptxas(lib_path):
             f"{max(regs, default=0)} registers, {sum(spills)} bytes spilled")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script measures the port on "
-              "the card", file=sys.stderr)
-        return 2
+def check_first_frames(a, b, card_emb, cpu_emb, card_clip, cpu_clip):
+    """The 4-frame check: card state ``a`` against CPU state ``b``."""
     import numpy as np
-    from vilgod_tpu_torch.config import waymo_config
-    from vilgod_tpu_torch.data import SyntheticDataset
-    from vilgod_tpu_torch.models import vit_kernels
-    from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
-    from vilgod_tpu_torch.ops import cluster, entropy, kernels, neighbors
-    from vilgod_tpu_torch.pipeline.runner import run_sequences
-    from vilgod_tpu_torch.pipeline.state import (CLS_NONE, Capacity,
-                                                 SequenceState)
-    from vilgod_tpu_torch.utils.cuda_build import build_all
+    import torch
 
-    # ---- 1. device and build ----
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    paths = build_all([kernels.LIBRARY, vit_kernels.LIBRARY])
-    kernels.LIBRARY.load()
-    vit_kernels.LIBRARY.load()
-    log(f"build: {time.perf_counter() - t0:.2f} s -> "
-        f"{', '.join(p.name for p in paths)}")
-    for path in paths:
-        print_ptxas(path)
-
-    cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
-    ds = SyntheticDataset(**SCENE)
-    first = FirstFrames(ds.sequence("synth_0"), CHECK_FRAMES)
-    recorder = Recorder(kernels, (cluster, entropy, neighbors))
-    vit_rec = VitRecorder(vit_kernels)
-
-    # ---- 2. card half of the card-vs-CPU check (also the warm-up) ----
-    t0 = time.perf_counter()
-    card_clip, card_emb = clip_check_model("cuda"), []
-    vit_rec.watch(card_clip, card_emb)
-    card_state, _ = run_detector(first, cfg, "cuda", card_clip)
-    log(f"card run of the first {CHECK_FRAMES} frames: "
-        f"{time.perf_counter() - t0:.2f} s")
-
-    # ---- 3. the main path ----
-    t0 = time.perf_counter()
-    clip_model = ClipWrapper(cfg["preprocessor"]["clip"], dtype=torch.bfloat16,
-                             seed=0)
-    vit_rec.watch(clip_model)
-    log(f"ClipWrapper ViT-B/16 bf16 on the card: "
-        f"{time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    times = {}
-    with tempfile.TemporaryDirectory(dir=paths[0].parent) as cache:
-        kernels.reset_launches()
-        vit_kernels.reset_launches()
-        recorder.active = vit_rec.active = True
-        t0 = time.perf_counter()
-        run_sequences(ds, cfg, clip_model=clip_model, cache_dir=cache,
-                      stage_times=times, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        recorder.active = vit_rec.active = False
-        launches = {**kernels.LAUNCHES, **vit_kernels.LAUNCHES}
-        st = SequenceState.allocate("synth_0", SCENE["n_frames"],
-                                    Capacity.from_cfg(cfg), device="cpu")
-        assert st.load(Path(cache) / "synth_0.npz"), "no checkpoint written"
-    n_frames = SCENE["n_frames"]
-    stage_s = sum(times.values())
-    dets = (st.det_n > 0).sum(axis=1)
-    valid = st.det_valid
-    n_layers = clip_model.model_cfg.vision_layers
-    log("main path: " + json.dumps({
-        "frames": n_frames, "wall_s": wall, "stage_s": times,
-        "frames_per_s": n_frames / stage_s,
-        "detections_per_frame": dets.tolist(),
-        "valid_detections": int(valid.sum()),
-        "images_classified": vit_rec.images,
-        "classify_calls": vit_rec.encode_calls,
-        "ground_points_per_frame": float(st.ground_mask.sum() / n_frames),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "launches": launches}))
-    for name in kernels.KERNEL_NAMES:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    want = n_layers * vit_rec.encode_calls
-    if vit_rec.encode_calls <= 0 or launches["fused_attention_proj"] != want:
-        raise AssertionError(
-            f"fused_attention_proj launched {launches['fused_attention_proj']}"
-            f" times on the main path, expected {want} ({n_layers} layers x "
-            f"{vit_rec.encode_calls} classify calls)")
-    if not (set(times) == set(STAGES) and dets.min() > 0 and valid.any()
-            and np.isfinite(st.det_center).all()
-            and np.isfinite(st.plane_ref).all()
-            and (st.det_cls[valid] != CLS_NONE).all()
-            and ((st.det_score[valid] > 0) & (st.det_score[valid] <= 1)).all()
-            and (st.det_cls[~valid] == CLS_NONE).all()):
-        raise AssertionError("main path output malformed")
-    log("classes on the main path: " + json.dumps(
-        np.bincount(st.det_cls[valid], minlength=4).tolist()))
-
-    # the opt-in MLP kernels: one classify batch of the main path through
-    # the tower with each switch
-    x = vit_rec.tower_input
-    base = clip_model.model.encode_image(x).float()
-    for name, var in OPT_IN.items():
-        vit_kernels.reset_launches()
-        os.environ[var] = "1"
-        vit_rec.active = True
-        try:
-            out = clip_model.model.encode_image(x).float()
-            torch.cuda.synchronize()
-        finally:
-            vit_rec.active = False
-            del os.environ[var]
-        launches[name] = vit_kernels.LAUNCHES[name]
-        cos = float(torch.nn.functional.cosine_similarity(out, base).min())
-        log(f"{var}=1 on {x.shape[0]} images: {launches[name]} launches of "
-            f"{name}, min cosine to the default tower {cos:.6f}")
-        if launches[name] != n_layers:
-            raise AssertionError(f"{name}: {launches[name]} launches with "
-                                 f"{var}=1, expected {n_layers}")
-    del x, base, out
-    vit_rec.tower_input = None
-
-    log("profile: " + json.dumps(profile_main_path(ds, cfg, clip_model)))
-
-    # ---- 4. kernels against their plain versions ----
-    rows = []
-    for name in kernels.KERNEL_NAMES:
-        if name not in recorder.calls:
-            raise AssertionError(f"{name}: no main-path call recorded")
-        _, args, ends = recorder.calls[name]
-        cols = min(args[0].shape[1], 4 * 40960) // 2048 * 2048
-        row = check_kernel(name, args, kernels, cols, ends)
-        row["launches"] = launches[name]
-        rows.append(row)
-        log(f"kernel {name}: " + json.dumps(row))
-    recorder.calls.clear()
-    recorder.spans.clear()
-    for name in vit_kernels.KERNEL_NAMES:
-        if name not in vit_rec.calls:
-            raise AssertionError(f"{name}: no call recorded")
-        row = check_vit_kernel(name, vit_rec.calls.pop(name), vit_kernels)
-        row["launches"] = launches[name]
-        rows.append(row)
-        log(f"kernel {name}: " + json.dumps(row))
-        torch.cuda.empty_cache()
-
-    # ---- 5. CPU half of the card-vs-CPU check ----
-    t0 = time.perf_counter()
-    cpu_clip, cpu_emb = clip_check_model("cpu"), []
-    vit_rec.watch(cpu_clip, cpu_emb)
-    cpu_state, _ = run_detector(first, cfg, "cpu", cpu_clip)
-    log(f"CPU run of the first {CHECK_FRAMES} frames: "
-        f"{time.perf_counter() - t0:.2f} s")
-    a, b = card_state, cpu_state
     for field in ("ground_mask", "labels", "det_n", "det_static",
                   "det_valid"):
         if not np.array_equal(getattr(a, field), getattr(b, field)):
@@ -672,6 +680,318 @@ def main() -> int:
         "embedding_min_cosine": float(cos.min()),
         "det_cls_equal_share": float(same.mean()),
         "det_score_max_err": float(np.abs(a.det_score - b.det_score).max())}))
+
+
+def check_box_stages(a, b, results_a, results_b, ap_a, ap_b):
+    """Stages 5 and 7-9 on the card (``a``) and on the CPU (``b``) from the
+    same stage 1-4 checkpoint."""
+    import numpy as np
+
+    for field in ("det_tid", "det_valid", "det_cls", "det_static_track"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"card != CPU in {field} (stages 5, 7-9)")
+    ta, tb = a.tracks.serialize(), b.tracks.serialize()
+    for k in ta:
+        if not np.array_equal(ta[k], tb[k]):
+            raise AssertionError(f"card != CPU in the track pool's {k}")
+    nan_a, nan_b = np.isnan(a.det_box), np.isnan(b.det_box)
+    box_err = float(np.abs(np.where(nan_a, 0, a.det_box)
+                           - np.where(nan_b, 0, b.det_box)).max())
+    if not np.array_equal(nan_a, nan_b) or box_err > 1e-4:
+        raise AssertionError(f"card != CPU det_box: {box_err} m")
+    per_a = [len(r["name"]) for r in results_a]
+    per_b = [len(r["name"]) for r in results_b]
+    if per_a != per_b:
+        raise AssertionError(f"card != CPU boxes per frame: {per_a} vs {per_b}")
+    ap_err = max(abs(ap_a[k] - ap_b[k]) for k in ap_a)
+    if ap_a.keys() != ap_b.keys() or ap_err > 1e-6:
+        raise AssertionError(f"card != CPU APs: {ap_err}")
+    log("card vs CPU, stages 5 and 7-9: " + json.dumps({
+        "frames": a.n_frames, "tracks": int(len(a.tracks.valid_tracks())),
+        "boxes": int(sum(per_a)), "det_box_max_err_m": box_err,
+        "ap_max_err": ap_err}))
+
+
+def score(results, ds):
+    """The port's Waymo-protocol APs of ``results`` against the scene's
+    ground truth, in bench.py's range."""
+    from vilgod_tpu_torch.eval import evaluate_detections
+
+    seq = ds.sequence("synth_0")
+    gt = [seq.get_annos(f) for f in range(seq.sequence_length)]
+    return evaluate_detections(results, gt, eval_range=EVAL_RANGE)
+
+
+def ap_summary(ap):
+    return {cls: ap[f"OBJECT_TYPE_TYPE_{cls.upper()}_LEVEL_2/AP"]
+            for cls in ("Vehicle", "Pedestrian", "Cyclist")}
+
+
+def dense_config():
+    """The dense configuration: stages 1-3 with a 0.5 m entropy radius and
+    a 16000-point cluster input."""
+    from vilgod_tpu_torch.config import waymo_config
+
+    cfg = waymo_config(capacity={**CAPS,
+                                 "max_cluster_input": DENSE_CLUSTER_INPUT},
+                       pipeline_active=GEOMETRY[:3])
+    for p in cfg["pipeline"]:
+        if p["name"] == "calculate_entropy_scores":
+            p.setdefault("args", {})["max_neighbor_point_dist"] = DENSE_RADIUS
+    return cfg
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on "
+              "the card", file=sys.stderr)
+        return 2
+    import numpy as np
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.data import SyntheticDataset
+    from vilgod_tpu_torch.models import vit_kernels
+    from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
+    from vilgod_tpu_torch.ops import (cluster, dense_kernels, entropy, kernels,
+                                      neighbors)
+    from vilgod_tpu_torch.pipeline.runner import (ZeroShotDetector,
+                                                  run_sequences)
+    from vilgod_tpu_torch.pipeline.state import (CLS_NONE, Capacity,
+                                                 SequenceState)
+    from vilgod_tpu_torch.utils.cuda_build import build_all
+
+    # ---- 1. device and build ----
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    libraries = [kernels.LIBRARY, vit_kernels.LIBRARY, dense_kernels.LIBRARY]
+    paths = build_all(libraries)
+    for lib in libraries:
+        lib.load()
+    log(f"build: {time.perf_counter() - t0:.2f} s -> "
+        f"{', '.join(p.name for p in paths)}")
+    for path in paths:
+        print_ptxas(path)
+
+    cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
+    ds = SyntheticDataset(**SCENE)
+    first = FirstFrames(ds.sequence("synth_0"), CHECK_FRAMES)
+    recorder = Recorder(kernels, (cluster, entropy, neighbors))
+    dense_rec = DenseRecorder(dense_kernels)
+    vit_rec = VitRecorder(vit_kernels)
+    n_frames = SCENE["n_frames"]
+    work = Path(tempfile.mkdtemp(dir=paths[0].parent))
+
+    try:
+        # ---- 2. card half of the 4-frame card-vs-CPU check (warm-up) ----
+        check_cfg = waymo_config(capacity=CAPS, pipeline_active=CHECK_STAGES)
+        t0 = time.perf_counter()
+        card_clip, card_emb = clip_check_model("cuda"), []
+        vit_rec.watch(card_clip, card_emb)
+        card_state, _ = run_detector(first, check_cfg, "cuda", card_clip)
+        log(f"card run of the first {CHECK_FRAMES} frames: "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # ---- 3. the main path: nine stages ----
+        t0 = time.perf_counter()
+        clip_model = ClipWrapper(cfg["preprocessor"]["clip"],
+                                 dtype=torch.bfloat16, seed=0)
+        vit_rec.watch(clip_model)
+        log(f"ClipWrapper ViT-B/16 bf16 on the card: "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        times = {}
+        cache = work / "main"
+        for mod in (kernels, vit_kernels, dense_kernels):
+            mod.reset_launches()
+        recorder.active = vit_rec.active = True
+        t0 = time.perf_counter()
+        results = run_sequences(ds, cfg, clip_model=clip_model,
+                                cache_dir=cache, stage_times=times,
+                                device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recorder.active = vit_rec.active = False
+        launches = {**kernels.LAUNCHES, **vit_kernels.LAUNCHES}
+        st = SequenceState.allocate("synth_0", n_frames,
+                                    Capacity.from_cfg(cfg), device="cpu")
+        assert st.load(cache / "synth_0.npz"), "no checkpoint written"
+        stage_s = sum(times.values())
+        dets = (st.det_n > 0).sum(axis=1)
+        valid = st.det_valid
+        n_layers = clip_model.model_cfg.vision_layers
+        n_boxes = [len(r["name"]) for r in results]
+        log("main path stage seconds: " + json.dumps(times))
+        log("main path: " + json.dumps({
+            "frames": n_frames, "wall_s": wall, "stage_s": stage_s,
+            "frames_per_s": n_frames / stage_s,
+            "detections_per_frame": dets.tolist(),
+            "valid_detections": int(valid.sum()),
+            "tracks": int(len(st.tracks.valid_tracks())),
+            "boxes_per_frame": n_boxes,
+            "images_classified": vit_rec.images,
+            "classify_calls": vit_rec.encode_calls,
+            "ground_points_per_frame": float(st.ground_mask.sum() / n_frames),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches,
+            "dense_launches": dict(dense_kernels.LAUNCHES)}))
+        for name in kernels.KERNEL_NAMES:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} never launched on the main path")
+        want = n_layers * vit_rec.encode_calls
+        if vit_rec.encode_calls <= 0 or launches["fused_attention_proj"] != want:
+            raise AssertionError(
+                f"fused_attention_proj launched "
+                f"{launches['fused_attention_proj']} times on the main path, "
+                f"expected {want} ({n_layers} layers x {vit_rec.encode_calls} "
+                f"classify calls)")
+        boxes = np.concatenate([r["boxes_lidar"] for r in results])
+        if not (set(times) == set(STAGES) and dets.min() > 0 and valid.any()
+                and len(results) == n_frames and len(boxes) > 0
+                and np.isfinite(boxes).all()
+                and np.isfinite(st.det_center).all()
+                and np.isfinite(st.plane_ref).all()
+                and (st.det_cls[valid] != CLS_NONE).all()
+                and ((st.det_score[valid] > 0)
+                     & (st.det_score[valid] <= 1)).all()):
+            raise AssertionError("main path output malformed")
+        log("classes on the main path: " + json.dumps(
+            np.bincount(st.det_cls[valid], minlength=4).tolist()))
+
+        # the opt-in MLP kernels: one classify batch of the main path
+        # through the tower with each switch
+        x = vit_rec.tower_input
+        base = clip_model.model.encode_image(x).float()
+        for name, var in OPT_IN.items():
+            vit_kernels.reset_launches()
+            os.environ[var] = "1"
+            vit_rec.active = True
+            try:
+                out = clip_model.model.encode_image(x).float()
+                torch.cuda.synchronize()
+            finally:
+                vit_rec.active = False
+                del os.environ[var]
+            launches[name] = vit_kernels.LAUNCHES[name]
+            cos = float(torch.nn.functional.cosine_similarity(out, base).min())
+            log(f"{var}=1 on {x.shape[0]} images: {launches[name]} launches "
+                f"of {name}, min cosine to the default tower {cos:.6f}")
+            if launches[name] != n_layers:
+                raise AssertionError(f"{name}: {launches[name]} launches with "
+                                     f"{var}=1, expected {n_layers}")
+        del x, base, out
+        vit_rec.tower_input = None
+
+        log("profile: " + json.dumps(profile_main_path(ds, cfg, clip_model)))
+
+        # the geometry-only pass: stages 1-4 (their checkpoint kept for
+        # phase 5), then the nine stages resumed from it without CLIP
+        geo, stage4 = work / "geometry", work / "stage4"
+        geo_times = {}
+        run_sequences(ds, waymo_config(capacity=CAPS, pipeline_active=GEOMETRY),
+                      cache_dir=geo, stage_times=geo_times, device="cuda")
+        stage4.mkdir()
+        shutil.copy(geo / "synth_0.npz", stage4 / "synth_0.npz")
+        zsd = ZeroShotDetector(ds.sequence("synth_0"), "synth_0", cfg,
+                               clip_model=None, cache_dir=geo, device="cuda")
+        geo_results = zsd.process()
+        geo_state = zsd.state
+        geo_times.update({k: v for k, v in zsd.stage_times.items()
+                          if k not in GEOMETRY})
+        geo_ap = score(geo_results, ds)
+        log("geometry-only pass stage seconds: " + json.dumps(geo_times))
+        log("geometry-only pass: " + json.dumps({
+            "detections": int(sum(len(r["name"]) for r in geo_results)),
+            "boxes_by_class": {str(k): int(v) for k, v in zip(*np.unique(
+                np.concatenate([r["name"] for r in geo_results]),
+                return_counts=True))},
+            "boxes_per_frame": [len(r["name"]) for r in geo_results],
+            "tracks": int(len(geo_state.tracks.valid_tracks())),
+            "level_2_ap": ap_summary(geo_ap)}))
+
+        # ---- 3b. the dense configuration ----
+        dense_times = {}
+        dense_kernels.reset_launches()
+        dense_rec.active = True
+        t0 = time.perf_counter()
+        run_sequences(ds, dense_config(), stage_times=dense_times,
+                      device="cuda")
+        torch.cuda.synchronize()
+        dense_wall = time.perf_counter() - t0
+        dense_rec.active = False
+        dense_launches = dict(dense_kernels.LAUNCHES)
+        launches.update(dense_launches)
+        log("dense configuration stage seconds: " + json.dumps(dense_times))
+        log("dense configuration: " + json.dumps({
+            "wall_s": dense_wall, "launches": dense_launches,
+            "args": {k: [list(a.shape) for a in v[1] if hasattr(a, "shape")]
+                     for k, v in dense_rec.calls.items()}}))
+        if dense_launches["tile_radius_count"] != 8 * n_frames:
+            raise AssertionError(
+                f"tile_radius_count launched "
+                f"{dense_launches['tile_radius_count']} times, expected "
+                f"{8 * n_frames} (24 frames x 8 window frames)")
+        for name in ("tile_radius_count3", "tile_min_label", "tile_nearest"):
+            if dense_launches[name] < n_frames:
+                raise AssertionError(f"{name} launched {dense_launches[name]} "
+                                     f"times, expected >= {n_frames}")
+
+        # ---- 4. kernels against their plain versions ----
+        rows = []
+        for name in kernels.KERNEL_NAMES:
+            if name not in recorder.calls:
+                raise AssertionError(f"{name}: no main-path call recorded")
+            _, args, ends = recorder.calls[name]
+            cols = min(args[0].shape[1], 4 * 40960) // 2048 * 2048
+            row = check_kernel(name, args, kernels, cols, ends)
+            row["launches"] = launches[name]
+            rows.append(row)
+            log(f"kernel {name}: " + json.dumps(row))
+        recorder.calls.clear()
+        recorder.spans.clear()
+        for name in dense_kernels.KERNEL_NAMES:
+            if name not in dense_rec.calls:
+                raise AssertionError(f"{name}: no dense call recorded")
+            row = check_dense_kernel(name, dense_rec.calls.pop(name)[1],
+                                     dense_kernels)
+            row["launches"] = launches[name]
+            rows.append(row)
+            log(f"kernel {name}: " + json.dumps(row))
+        for name in vit_kernels.KERNEL_NAMES:
+            if name not in vit_rec.calls:
+                raise AssertionError(f"{name}: no call recorded")
+            row = check_vit_kernel(name, vit_rec.calls.pop(name), vit_kernels)
+            row["launches"] = launches[name]
+            rows.append(row)
+            log(f"kernel {name}: " + json.dumps(row))
+            torch.cuda.empty_cache()
+
+        # ---- 5. CPU halves of the card-vs-CPU checks ----
+        t0 = time.perf_counter()
+        cpu_clip, cpu_emb = clip_check_model("cpu"), []
+        vit_rec.watch(cpu_clip, cpu_emb)
+        cpu_state, _ = run_detector(first, check_cfg, "cpu", cpu_clip)
+        log(f"CPU run of the first {CHECK_FRAMES} frames: "
+            f"{time.perf_counter() - t0:.2f} s")
+        check_first_frames(card_state, cpu_state, card_emb, cpu_emb,
+                           card_clip, cpu_clip)
+
+        t0 = time.perf_counter()
+        zc = ZeroShotDetector(ds.sequence("synth_0"), "synth_0", cfg,
+                              clip_model=None, cache_dir=stage4, device="cpu")
+        cpu_results = zc.process()
+        log(f"CPU run of stages 5 and 7-9 over {n_frames} frames: "
+            f"{time.perf_counter() - t0:.2f} s "
+            + json.dumps({k: v for k, v in zc.stage_times.items()
+                          if k not in GEOMETRY}))
+        check_box_stages(geo_state, zc.state, geo_results, cpu_results,
+                         geo_ap, score(cpu_results, ds))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -96,8 +96,8 @@ def test_jax_checkpoint_loads_into_port(jax_state, tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """vilgod_tpu_torch never imports jax: with jax unimportable the
-    package (the CLIP models and the classification stage included)
-    imports and runs a stage; asking for cuda without a card raises."""
+    package (the CLIP models, the classification and box stages, tracking,
+    eval and the dense kernels included) imports and runs a stage; asking for cuda without a card raises."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -107,7 +107,9 @@ from vilgod_tpu_torch.data import SyntheticDataset
 from vilgod_tpu_torch.pipeline.runner import ZeroShotDetector
 import vilgod_tpu_torch.models
 from vilgod_tpu_torch.models import clip, clip_wrapper, tokenizer, vit_kernels
-from vilgod_tpu_torch.pipeline import stages_classify
+from vilgod_tpu_torch.pipeline import stages_boxes, stages_classify
+from vilgod_tpu_torch import eval, tracking
+from vilgod_tpu_torch.ops import boxes, dense_kernels
 cap = {"max_points": 16384, "max_ng_points": 8192, "max_cluster_input": 8192}
 cfg = waymo_config(capacity=cap, pipeline_active=["mask_ground_points"])
 seq = SyntheticDataset(n_sequences=1, n_frames=4, seed=12, n_ground=3000,
@@ -133,12 +135,12 @@ print("OK")
 
 
 @pytest.mark.parametrize("stage,extra,match", [
-    ("track_clusters", {}, "queue 1 item 7"),
     ("mask_ground_points", {"parallel": {"ground_chains": 2}}, "item 11"),
-], ids=["stage", "ground-chains"])
+], ids=["ground-chains"])
 def test_unported_stage_raises(stage, extra, match):
-    """A stage or branch the port does not have raises, naming the ROADMAP
-    item that ports it, instead of running something else."""
+    """A branch the port does not have raises, naming the ROADMAP item that
+    ports it, instead of running something else (every stage name is
+    ported: tests/test_torch_stages_boxes.py)."""
     cfg = waymo_config(capacity=CAP, pipeline_active=[stage], **extra)
     zsd = ZeroShotDetector(SyntheticDataset(**SCENE).sequence("synth_0"),
                            "synth_0", cfg, device="cpu")

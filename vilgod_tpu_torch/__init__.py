@@ -3,7 +3,7 @@
 A second package beside the JAX one, run on an NVIDIA H100: plain tensor
 code is PyTorch and every Pallas kernel of the JAX package on the ported
 path is a CUDA C++ kernel under ``csrc/`` (see ``ops/kernels.py``). It
-imports ``torch`` and numpy only, never ``jax`` and nothing of
+imports ``torch``, numpy and scipy only, never ``jax`` and nothing of
 ``vilgod_tpu``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; there the kernel wrappers take their plain PyTorch
 versions.

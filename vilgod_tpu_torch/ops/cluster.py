@@ -14,9 +14,10 @@ semantics and HDBSCAN's mutual-reachability linkage (see the JAX module):
 3. border points take the label of their nearest core point within its
    radius; clusters below ``min_cluster_size`` become noise (-1).
 
-Every distance pass is a banded kernel (``ops/kernels.py``) whose window
-overflow re-runs that pass alone at full width. The dense ``_dbscan_full``
-of the JAX package (small or non-tile-multiple inputs) is not ported yet.
+Large tile-multiple inputs run banded kernels (``ops/kernels.py``) whose
+window overflow re-runs that pass alone at full width; small or
+non-tile-multiple inputs, and plain (non-adaptive) DBSCAN, run the dense
+all-pairs kernels (``ops/dense_kernels.py``) of :func:`_dbscan_full`.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ import torch
 from .banded import (_INVALID_CID, GRID, band_width, banded_min_label,
                      banded_nearest, banded_radius_count3, block_windows,
                      cell_ids, full_width, page_origins, sort_by_cell)
+from . import dense_kernels
 from .kernels import TD, TQ, TQ_HEAVY, prep_t8
-from .neighbors import PAGE_ISO, _dense_not_ported
+from .neighbors import PAGE_ISO
 
 _BIG_LABEL = 2 ** 30
 
@@ -94,6 +96,66 @@ def _core_radii(counts3, mask, levels, eps_cap, min_samples):
     first = torch.argmax(enough.to(torch.int32), dim=1)  # first True (or 0)
     radius = torch.where(enough.any(dim=1), levels[first], eps_cap)
     return radius, mask & enough[:, -1]
+
+
+def _radius_count_full(points, mask, radius2):
+    """Self neighbour counts within ``radius2`` over all feature columns,
+    excluding self: the plain difference-form count (the JAX package's
+    branch is its XLA matmul form, with no Pallas kernel)."""
+    n, ndim = points.shape
+    pts_t8 = prep_t8(points, mask, 1)
+    counts = dense_kernels.count_plain(pts_t8, pts_t8, radius2, ndim)
+    return torch.where(mask, torch.clamp(counts - 1, min=0), 0)
+
+
+def _dbscan_full(points, mask, levels, min_samples, min_cluster_size,
+                 propagation_rounds, adaptive):
+    """All-pairs DBSCAN (small inputs, sizes no tile divides, and plain
+    DBSCAN): every distance pass scans the whole cloud in the original
+    order. ``levels`` (3,) f32 as in :func:`_dbscan_banded`; plain DBSCAN
+    uses ``levels[0]`` (eps) alone."""
+    n, ndim = points.shape
+    big = n
+    pts_tq = prep_t8(points, mask, TQ)
+    if adaptive:
+        # the three counts include self; _core_radii removes it
+        counts3 = dense_kernels.tile_radius_count3(
+            pts_tq, prep_t8(points, mask, TD), levels * levels, ndim=ndim)[:n]
+        radius, core = _core_radii(counts3, mask, levels, levels[2],
+                                   min_samples)
+    else:
+        eps = levels[0]
+        counts = _radius_count_full(points, mask, eps * eps)
+        # counts exclude self; DBSCAN's min_samples includes the point
+        core = mask & (counts >= min_samples - 1)
+        radius = eps.expand(n).clone()
+    radius2 = radius * radius
+
+    # core compaction by sentinel coordinates: non-core points sit at the
+    # far sentinel with radius 0 and label 2**30 on both sides of the
+    # min-label pass
+    core_td = prep_t8(points, core, TD)
+    n_td = core_td.shape[1]
+    r2_td = torch.zeros(n_td, dtype=torch.float32, device=points.device)
+    r2_td[:n] = torch.where(core, radius2, 0.0)
+    arange = torch.arange(n, dtype=torch.int32, device=points.device)
+
+    def radius_min(labels):
+        lab_td = torch.full((n_td,), _BIG_LABEL, dtype=torch.int32,
+                            device=points.device)
+        lab_td[:n] = torch.where(core, labels, _BIG_LABEL)
+        best = dense_kernels.tile_min_label(core_td, r2_td, lab_td, ndim,
+                                            _BIG_LABEL)[:n]
+        best = torch.clamp(best, max=big)
+        return torch.where(core, torch.minimum(labels, best), big)
+
+    labels = _propagate(torch.where(core, arange, big), radius_min, core, n,
+                        propagation_rounds)
+    # border points: the nearest core point, an index in the original order
+    nearest_d2, nearest_core = dense_kernels.tile_nearest(pts_tq, core_td,
+                                                          ndim=ndim)
+    return _dbscan_tail(labels, mask, core, radius, radius2,
+                        nearest_d2[:n], nearest_core[:n], min_cluster_size)
 
 
 def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
@@ -184,16 +246,18 @@ def dbscan_labels(points, mask, eps: float = 0.15, min_samples: int = 15,
     """Cluster ``points`` (N, F) -> (labels (N,) int32, probabilities (N,)).
 
     Distances use all F feature columns (the pipeline clusters 5-D [xyz,
-    entropy, 0.1*frame] features). Labels are sorted-rank roots with -1
-    noise (compact them per frame)."""
+    entropy, 0.1*frame] features). Labels are roots with -1 noise
+    (compact them per frame): sorted ranks on the banded path, original
+    indices on the dense one."""
     n = points.shape[0]
-    if not adaptive or n < 4096 or n % 2048 != 0:
-        raise _dense_not_ported("dbscan_labels (_dbscan_full)")
     # the JAX function traces eps and eps_cap_factor, so its levels come
     # from f32 arithmetic
     e = torch.tensor(eps, dtype=torch.float32)
     f = torch.tensor(eps_cap_factor, dtype=torch.float32)
     levels = torch.stack([e, e * f ** 0.5, e * f]).to(points.device)
+    if not adaptive or n < 4096 or n % 2048 != 0:
+        return _dbscan_full(points, mask, levels, min_samples,
+                            min_cluster_size, propagation_rounds, adaptive)
     order, cid_sorted = sort_by_cell(points, mask)
     labels_s, probs_s = _dbscan_banded(points[order], mask[order], cid_sorted,
                                        levels, min_samples, min_cluster_size,

@@ -1,5 +1,5 @@
-"""Ephemerality / entropy motion scores (MODEST-style); the port of the
-banded branch of ``vilgod_tpu/ops/entropy.py``."""
+"""Ephemerality / entropy motion scores (MODEST-style); the port of
+``vilgod_tpu/ops/entropy.py``."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +7,7 @@ import torch
 from .banded import (CELL, band_width, banded_radius_count, block_windows,
                      sort_by_cell)
 from .kernels import TD, TQ, prep_t8
-from .neighbors import _dense_not_ported, radius2_threshold
+from .neighbors import radius2_threshold, radius_count
 
 
 def entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
@@ -40,9 +40,11 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
     ``include_ground_points`` option); queries stay the non-ground points.
 
     Window start ``clamp(f, 0, F_real - W)`` with every ``skip_frames +
-    1``-th frame sampled. Every frame is cell-sorted once against one
-    sequence-wide grid origin; each (frame, window frame) pair is one
-    banded count, re-run at full width when its windows overflow.
+    1``-th frame sampled. Large clouds with a radius below the cell side
+    are cell-sorted once per frame against one sequence-wide grid origin,
+    and each (frame, window frame) pair is one banded count, re-run at
+    full width when its windows overflow; otherwise each pair is one
+    :func:`radius_count` (the dense all-pairs count for such a radius).
     """
     f_total, n = frames.shape[:2]
     d_frames = frames if data_frames is None else data_frames
@@ -56,7 +58,12 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
                 and n >= 4096 and n % 2048 == 0
                 and n_d >= 4096 and n_d % 2048 == 0)
     if not bandable:
-        raise _dense_not_ported("entropy_sequence")
+        def pair_counts(fnr, wf):
+            return radius_count(frames[fnr], masks[fnr], d_frames[wf],
+                                d_masks[wf], radius,
+                                max_count=max_neighbor_points + 1)
+        return _scores(masks, f_total, f_real, w, sampled, pair_counts,
+                       max_neighbor_points)
 
     # ONE origin for the whole sequence: frames' cell ids are compared
     # against other frames' ids inside the window passes
@@ -79,25 +86,36 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
     tq = min(TQ, n)
     r2 = radius2_threshold(radius)
 
+    def pair_counts(fnr, wf):
+        q_t8, cq, order = sorted_q[fnr]
+        d_t8, cd, _ = sorted_d[wf]
+        starts, _, ovf = block_windows(cq, cd, tq, w_band)
+        w_pass = w_band
+        if w_band != n_d and bool(ovf):
+            # overflow: the SAME banded pass at full width
+            starts, w_pass = torch.zeros_like(starts), n_d
+        c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w_pass)[:n]
+        c_un = torch.zeros(n, dtype=torch.int32, device=frames.device)
+        c_un[order] = c
+        return torch.clamp(torch.where(masks[fnr], c_un, 0),
+                           max=max_neighbor_points + 1)
+
+    return _scores(masks, f_total, f_real, w, sampled, pair_counts,
+                   max_neighbor_points)
+
+
+def _scores(masks, f_total, f_real, w, sampled, pair_counts,
+            max_neighbor_points):
+    """Every frame's entropy from ``pair_counts(frame, window frame)``, the
+    clipped counts of one (frame, window frame) pair; the frame's own
+    count drops the query point itself."""
     scores = []
     for fnr in range(f_total):
         start = min(max(fnr, 0), max(f_real - w, 0))
         seek = fnr - start
-        q_t8, cq, order = sorted_q[fnr]
         counts = []
         for s in sampled:
-            wf = min(max(s + start, 0), f_total - 1)
-            d_t8, cd, _ = sorted_d[wf]
-            starts, _, ovf = block_windows(cq, cd, tq, w_band)
-            w_pass = w_band
-            if w_band != n_d and bool(ovf):
-                # overflow: the SAME banded pass at full width
-                starts, w_pass = torch.zeros_like(starts), n_d
-            c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w_pass)[:n]
-            c_un = torch.zeros(n, dtype=torch.int32, device=frames.device)
-            c_un[order] = c
-            c = torch.clamp(torch.where(masks[fnr], c_un, 0),
-                            max=max_neighbor_points + 1)
+            c = pair_counts(fnr, min(max(s + start, 0), f_total - 1))
             if s == seek:
                 c = torch.clamp(c - 1, min=0)
             counts.append(torch.clamp(c, max=max_neighbor_points))

@@ -1,10 +1,11 @@
-"""Neighbour search: radius counts and nearest-neighbour label transfer.
-The port of the banded branches of ``vilgod_tpu/ops/neighbors.py``.
+"""Neighbour search: radius counts, nearest neighbours and label transfer;
+the port of ``vilgod_tpu/ops/neighbors.py``.
 
-The dense (non-banded) paths of the JAX package (``_radius_count_dense``
-and the blockwise ``knn``) are small-input and overflow fallbacks the
-pipeline's shapes do not reach (ng buckets are multiples of 8192, cluster
-inputs multiples of 2048); they are not ported yet and raise.
+Large tile-multiple clouds with a radius below the cell side take the
+banded passes (``ops/banded.py``); the rest take the dense all-pairs
+kernels of ``ops/dense_kernels.py`` (the JAX package's Pallas branches of
+``_radius_count_dense`` and ``knn``), as does the label transfer when a
+band overflows.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from .banded import (CELL, GRID, band_width, banded_nearest,
                      banded_radius_count, block_windows, cell_ids,
                      cell_origin, full_width, page_origins, sort_by_cell)
+from . import dense_kernels
 from .kernels import TD, TQ, prep_t8
 
 # isolation spacing of the page column of the paged passes (shared with
@@ -41,13 +43,6 @@ def _bandable(nq: int, nd: int, radius) -> bool:
     return (isinstance(radius, (int, float)) and float(radius) < CELL
             and nq >= 4096 and nd >= 4096
             and nq % 1024 == 0 and nd % 2048 == 0)
-
-
-def _dense_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the dense (non-banded) path of vilgod_tpu is not ported "
-        "(ROADMAP queue 2, kernels 6-9); the pipeline's bucketed shapes "
-        "always take the banded path")
 
 
 def _radius_count_banded(query, query_mask, data, data_mask, radius,
@@ -82,7 +77,19 @@ def radius_count(query, query_mask, data, data_mask, radius: float,
     if _bandable(query.shape[0], data.shape[0], radius):
         return _radius_count_banded(query, query_mask, data, data_mask,
                                     radius, max_count)
-    raise _dense_not_ported("radius_count")
+    return _radius_count_dense(query, query_mask, data, data_mask, radius,
+                               max_count)
+
+
+def _radius_count_dense(query, query_mask, data, data_mask, radius,
+                        max_count):
+    """All-pairs radius count (the JAX package's Pallas branch)."""
+    q_t8 = prep_t8(query[:, :3], query_mask, TQ)
+    d_t8 = prep_t8(data[:, :3], data_mask, TD)
+    counts = dense_kernels.tile_radius_count(q_t8, d_t8,
+                                             radius2_threshold(radius))
+    counts = torch.where(query_mask, counts[:query.shape[0]], 0)
+    return torch.clamp(counts, max=max_count)
 
 
 def radius_count_self(points, mask, radius: float,
@@ -90,6 +97,39 @@ def radius_count_self(points, mask, radius: float,
     """Self-neighbour counts, excluding the point itself."""
     c = radius_count(points, mask, points, mask, radius, max_count + 1)
     return torch.clamp(torch.clamp(c - 1, min=0), max=max_count)
+
+
+def knn(query, query_mask, data, data_mask, k: int = 1):
+    """Nearest neighbour: (Q, 3) vs (D, 3) -> (squared dists (Q, 1) f32,
+    indices (Q, 1) int32 into the caller's data order, clamped to D - 1).
+    Invalid queries get +inf; invalid data points never win over a valid
+    one (they sit at the far sentinel)."""
+    if k != 1:
+        raise NotImplementedError(
+            "knn with k > 1 (the JAX package's blockwise top-k) is not "
+            "ported: no stage calls it (ROADMAP queue 1)")
+    nq, nd = query.shape[0], data.shape[0]
+    q_t8 = prep_t8(query[:, :3], query_mask, TQ)
+    d_t8 = prep_t8(data[:, :3], data_mask, TD)
+    bd, bi = dense_kernels.tile_nearest(q_t8, d_t8)
+    bd = torch.where(query_mask, bd[:nq], float("inf"))
+    bi = torch.clamp(bi[:nq], max=nd - 1)
+    return bd[:, None], bi[:, None]
+
+
+def chamfer_distance(points_1, mask_1, points_2, mask_2,
+                     threshold: float = 0.2):
+    """Symmetric thresholded chamfer distance (squared distances below
+    ``threshold`` averaged each way, then the mean of the two)."""
+    d12, _ = knn(points_1, mask_1, points_2, mask_2)
+    d21, _ = knn(points_2, mask_2, points_1, mask_1)
+
+    def masked_mean(d, m):
+        sel = m & (d[:, 0] < threshold)
+        total = torch.where(sel, d[:, 0], torch.zeros_like(d[:, 0])).sum()
+        return total / torch.clamp(sel.sum(), min=1)
+
+    return (masked_mean(d12, mask_1) + masked_mean(d21, mask_2)) / 2.0
 
 
 def _transfer(labels, probabilities, d2, idx0, query_mask, dist_threshold):
@@ -110,11 +150,19 @@ def _transfer(labels, probabilities, d2, idx0, query_mask, dist_threshold):
 def knn_labels(query, query_mask, data, data_mask, labels,
                probabilities=None, dist_threshold: float = 0.2):
     """Nearest-neighbour label transfer with a squared-distance cutoff:
-    label -1 beyond ``dist_threshold``. Banded: any nearest neighbour
-    outside the band is farther than sqrt(dist_threshold) < CELL."""
+    label -1 beyond ``dist_threshold``. Banded where the clouds allow it
+    (any nearest neighbour outside the band is farther than
+    sqrt(dist_threshold) < CELL); the dense :func:`knn` otherwise and when
+    a band overflows."""
     nq, nd = query.shape[0], data.shape[0]
+
+    def dense():
+        dists, idx = knn(query, query_mask, data, data_mask)
+        return _transfer(labels, probabilities, dists[:, 0], idx[:, 0].long(),
+                         query_mask, dist_threshold)
+
     if not _bandable(nq, nd, float(np.sqrt(dist_threshold))):
-        raise _dense_not_ported("knn_labels")
+        return dense()
     og = torch.minimum(cell_origin(query[:, :2], query_mask),
                        cell_origin(data[:, :2], data_mask))
     oq, cq = sort_by_cell(query[:, :3], query_mask, origin=og)
@@ -124,12 +172,11 @@ def knn_labels(query, query_mask, data, data_mask, labels,
     tq = min(TQ, nq)
     w_band = band_width(nd, tile=TD)
     starts, _, ovf = block_windows(cq, cd, tq, w_band)
-    w_full = full_width(nd)
-    if w_full != w_band and bool(ovf):
-        # the SAME kernel at full width. (The JAX package runs its dense
-        # matmul-form knn here; the exact difference form can only differ
-        # from it where that form's rounding reorders near-ties.)
-        starts, w_band = torch.zeros_like(starts), w_full
+    if bool(ovf):
+        # a window wider than the band: the dense knn over the original
+        # orders, as the JAX package does (a band as wide as the data
+        # never overflows)
+        return dense()
     bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band)
     bd, bi = bd[:nq], torch.clamp(bi[:nq], max=nd - 1)
     # query rank -> original query row, data rank -> original data row

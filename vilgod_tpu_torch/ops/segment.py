@@ -1,6 +1,7 @@
-"""Per-label statistics straight from the flat cloud; the port of the
-by-label statistics of ``vilgod_tpu/ops/segment.py`` (median, percentile,
-min, max, count and support-function hull area)."""
+"""Per-label statistics straight from the flat cloud, and the masked
+median of a gather table; the port of the by-label statistics and
+``seg_median`` of ``vilgod_tpu/ops/segment.py`` (median, percentile, min,
+max, count and support-function hull area)."""
 from __future__ import annotations
 
 import math
@@ -35,6 +36,18 @@ def _take(values, idx):
     """Gather with indices clamped into range, as an XLA gather clamps
     (empty segments start at N; their result is masked afterwards)."""
     return values[torch.clamp(idx, 0, values.shape[0] - 1).long()]
+
+
+def seg_median(values, table_mask):
+    """Masked per-row median over a (C, P) table (numpy's: the mean of the
+    two middle elements for even counts) -> (C,)."""
+    v = torch.sort(torch.where(table_mask, values, 1e9), dim=1).values
+    cnt = table_mask.sum(dim=1)
+    lo = torch.clamp(cnt - 1, min=0) // 2
+    hi = torch.clamp(cnt, min=1) // 2
+    med = 0.5 * (torch.gather(v, 1, lo[:, None])[:, 0]
+                 + torch.gather(v, 1, hi[:, None])[:, 0])
+    return torch.where(cnt > 0, med, 0.0)
 
 
 def seg_median_by_label(values, labels, valid, num_segments: int,

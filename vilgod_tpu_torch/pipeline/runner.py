@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from ..utils.common import resolve_device
+from .stages_boxes import (evaluate_sequence, fit_bounding_boxes_simple,
+                           propagate_labels, track_clusters)
 from .stages_classify import classification
 from .stages_geometry import (calculate_entropy_scores, filter_detections,
                               mask_ground_points, rebuild_ng_buffers,
@@ -30,27 +32,12 @@ STAGE_REGISTRY = {
     "calculate_entropy_scores": calculate_entropy_scores,
     "spatial_clustering": spatial_clustering,
     "filter_detections": filter_detections,
+    "track_clusters": track_clusters,
     "classification": classification,
+    "fit_bounding_boxes_simple": fit_bounding_boxes_simple,
+    "propagate_labels": propagate_labels,
+    "evaluate_sequence": evaluate_sequence,
 }
-
-# stages of the JAX pipeline the port does not have yet -> the ROADMAP
-# item (queue 1) that ports them
-NOT_PORTED = {
-    "track_clusters": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
-    "fit_bounding_boxes_simple": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
-    "propagate_labels": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
-    "evaluate_sequence": "ROADMAP queue 1 item 7 (tracking, boxes, labels)",
-}
-
-
-def _stage(task_name: str):
-    if task_name in STAGE_REGISTRY:
-        return STAGE_REGISTRY[task_name]
-    if task_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"stage {task_name!r} is not ported to vilgod_tpu_torch yet: "
-            f"{NOT_PORTED[task_name]}")
-    raise KeyError(f"unknown stage {task_name!r}")
 
 
 class ZeroShotDetector:
@@ -81,15 +68,15 @@ class ZeroShotDetector:
         self.detection_3d_result_list: list[dict] = []
 
     def process(self) -> list[dict]:
-        """Run the active pipeline; returns the per-frame detection dicts
-        (filled by evaluate_sequence, which is not ported yet)."""
+        """Run the active pipeline; returns the per-frame detection dicts of
+        ``evaluate_sequence`` (empty when that stage is not active)."""
         pipeline = {p["name"]: p.get("args", {})
                     for p in self.cfg.get("pipeline", [])}
         for task_name in self.cfg.get("pipeline_active", []):
             if task_name not in pipeline:
                 log.warning("%s NOT FOUND!!!", task_name)
                 continue
-            fn = _stage(task_name)
+            fn = STAGE_REGISTRY[task_name]
             args = dict(pipeline[task_name])
             if task_name == "classification":
                 args["clip_model"] = self.clip_model
@@ -105,6 +92,8 @@ class ZeroShotDetector:
             ran = self.state.done.get(task_name, False) and not before
             if ran and self.cache_path is not None:
                 self.state.save(self.cache_path)
+        if self.state.detection_3d_result_list is not None:
+            self.detection_3d_result_list = self.state.detection_3d_result_list
         return self.detection_3d_result_list
 
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..tracking.tracker import TrackPool
 from ..utils.common import resolve_device
 
 CLS_NONE = -1
@@ -99,9 +100,9 @@ class SequenceState:
     det_cls: np.ndarray       # (F, C) int32 index into MAPPED_CLASSES
     det_score: np.ndarray     # (F, C) float32
     done: dict = field(default_factory=dict)   # stage-name -> bool
-    # the track pool's serialized arrays ("trk_*" of the checkpoint), kept
-    # as they are until tracking is ported
-    tracks: dict | None = None
+    tracks: TrackPool | None = None  # attached by track_clusters
+    # per-frame detection dicts of evaluate_sequence
+    detection_3d_result_list: list | None = None
     _ng_counts: np.ndarray = None  # (F,) non-ground occupancy (stage 1)
     _dev: dict = field(default_factory=dict, repr=False)    # device cache
     _canon: dict = field(default_factory=dict, repr=False)  # name -> _dev key
@@ -314,8 +315,9 @@ class SequenceState:
         payload["entropy_values"] = ng_entropy[sel].astype(np.float32)
         payload["done_keys"] = np.array(
             sorted(k for k, v in self.done.items() if v))
-        for k, v in (self.tracks or {}).items():
-            payload[f"trk_{k}"] = v
+        if self.tracks is not None:
+            for k, v in self.tracks.serialize().items():
+                payload[f"trk_{k}"] = v
         np.savez_compressed(path, **payload)
 
     def load(self, path: str | Path) -> bool:
@@ -331,7 +333,7 @@ class SequenceState:
                                data["entropy_point_idx"]] = data["entropy_values"]
             self.done = {str(k): True for k in data["done_keys"]}
             trk = {k[4:]: data[k] for k in data.files if k.startswith("trk_")}
-            self.tracks = trk or None
+            self.tracks = TrackPool.deserialize(trk) if trk else None
         # the loaded host arrays are canonical; the ng buffers' geometry is
         # rebuilt from the raw frames by the runner
         self._dev.clear()
