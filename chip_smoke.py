@@ -32,14 +32,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    label transfer), stages 1-3; its counts zeroed just before and read just
    after: ``tile_radius_count`` 192 times, the other dense kernels at least
    24 times each;
-4. kernels against their plain PyTorch versions on the card, on the
-   arguments the runs gave them (captured in phases 3 and 3b): the banded
-   kernels also on a forced full-width (overflow) call each, the dense
-   kernels also on a ragged call (N not a multiple of 256) each (counts,
-   labels and indices equal, squared distances bitwise equal), the ViT
+4. all twelve kernels against their plain PyTorch versions on the card,
+   on the arguments the runs gave them (captured in phases 3 and 3b): the
+   banded kernels also on a forced full-width (overflow) call each, the
+   dense kernels also on a ragged call (N not a multiple of 256) each
+   (counts, labels and indices equal, squared distances bitwise equal);
+   ``tile_min_label_qd``, which no path calls, on a 512-lane query block
+   of the main path's largest ``banded_tile_min_label`` call against that
+   block's window, and on a ragged 1000 x 1500 call (labels equal); the ViT
    kernels also on a ragged batch of 3 images (assert_close rtol 1.6e-2,
-   atol 1e-2, mean |diff| < 1e-3); kernel, plain, torch-composite and bound
-   times;
+   atol 1e-2, mean |diff| < 1e-3), with a line that splits
+   ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
+   core and output GEMM (ms, TFLOP/s, GB/s); kernel, plain, torch-composite
+   and bound times;
 5. card against CPU, second half: the same 4 frames by the port on the CPU
    (the plain versions): ground mask, labels, det_n, det_static and
    det_valid equal, det_center within 1e-4 m, plane_ref within 1e-4, every
@@ -109,6 +114,7 @@ REPLACES = {
     "tile_radius_count3": "vilgod_tpu/ops/pallas_kernels.py:136",
     "tile_min_label": "vilgod_tpu/ops/pallas_kernels.py:187",
     "tile_nearest": "vilgod_tpu/ops/pallas_kernels.py:531",
+    "tile_min_label_qd": "vilgod_tpu/ops/pallas_kernels.py:241",
 }
 OPT_IN = {"fused_mlp_block": "VILGOD_FUSED_MLP_BLOCK",
           "fused_mlp": "VILGOD_FUSED_MLP"}
@@ -117,7 +123,8 @@ OPT_IN = {"fused_mlp_block": "VILGOD_FUSED_MLP_BLOCK",
 EPILOGUE_OPS = {"banded_tile_count": 1, "banded_tile_count3": 3,
                 "banded_tile_min_label": 2, "banded_tile_nearest": 1,
                 "tile_radius_count": 1, "tile_radius_count3": 3,
-                "tile_min_label": 2, "tile_nearest": 1}
+                "tile_min_label": 2, "tile_nearest": 1,
+                "tile_min_label_qd": 2}
 
 
 def log(msg):
@@ -149,7 +156,8 @@ POS = {
 OUT_BYTES = {"banded_tile_count": 4, "banded_tile_count3": 12,
              "banded_tile_min_label": 4, "banded_tile_nearest": 8,
              "tile_radius_count": 4, "tile_radius_count3": 12,
-             "tile_min_label": 4, "tile_nearest": 8}
+             "tile_min_label": 4, "tile_nearest": 8,
+             "tile_min_label_qd": 4}
 
 
 class Recorder:
@@ -326,11 +334,49 @@ def dense_ragged_args(name, args, n_q=1000, n_d=1500):
     return tuple(a)
 
 
+def min_label_qd_args(args, ends, n_q=512):
+    """Kernel 12's arguments cut from a ``banded_tile_min_label`` call:
+    ``n_q`` query lanes from the query block with the longest true candidate
+    span (the middle block where the span is unknown) and that block's
+    window of w data lanes, with both radii and the data's labels."""
+    pts_t8, r2, lab, starts, tq, w, ndim, big = args
+    n = pts_t8.shape[1]
+    if ends is not None:
+        blk = int((ends - starts).clamp(0, w).argmax())
+    else:
+        blk = starts.numel() // 2
+    q0 = min(blk * tq, n - n_q)
+    s = min(max(int(starts[blk]), 0), n - w)
+    return (pts_t8[:, q0:q0 + n_q].contiguous(),
+            pts_t8[:, s:s + w].contiguous(), r2[q0:q0 + n_q].contiguous(),
+            r2[s:s + w].contiguous(), lab[s:s + w].contiguous(), ndim, big)
+
+
+def min_label_qd_ragged(args, n_q=1000, n_d=1500):
+    """The ragged kernel-12 call: the first ``n_q`` lanes of the cloud
+    against ``n_d`` lanes of the window (neither a multiple of 256)."""
+    pts_t8, r2, lab, starts, tq, w, ndim, big = args
+    s = min(max(int(starts[starts.numel() // 2]), 0), pts_t8.shape[1] - n_d)
+    return (pts_t8[:, :n_q].contiguous(), pts_t8[:, s:s + n_d].contiguous(),
+            r2[:n_q].contiguous(), r2[s:s + n_d].contiguous(),
+            lab[s:s + n_d].contiguous(), ndim, big)
+
+
 def dense_composite(name, args):
     """The same function from ``torch.cdist`` (the matmul form) and a
     compare or a min: the yardstick the port never calls."""
     import torch
 
+    if name == "tile_min_label_qd":
+        q_t8, d_t8, q_r2, d_r2, lab, ndim, big = args
+        q, d = q_t8[:ndim].T.contiguous(), d_t8[:ndim].T.contiguous()
+        big_t = torch.tensor(big, dtype=torch.int32, device=q.device)
+
+        def run():
+            d2 = torch.cdist(q, d).square_()
+            joint = torch.maximum(q_r2[:, None], d_r2[None, :])
+            return torch.where(d2 <= joint, lab[None, :], big_t).amin(dim=1)
+        return run
     if name == "tile_min_label":
         pts_t8, r2, lab, ndim, big = args
         p = pts_t8[:ndim].T.contiguous()
@@ -358,10 +404,11 @@ def dense_composite(name, args):
     return lambda: torch.cdist(q, d).square_().min(dim=1)
 
 
-def check_dense_kernel(name, args, dense_kernels):
+def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
     """Kernel vs plain version on the captured ``args`` and on a ragged
-    call; kernel, plain, composite and bound times. Every query meets every
-    data point, so the operations are the same whatever the data."""
+    call (``ragged_args``, else cut from ``args``); kernel, plain,
+    composite and bound times. Every query meets every data point, so the
+    operations are the same whatever the data."""
     import torch
 
     kernel = getattr(dense_kernels, name).wrapped
@@ -383,7 +430,9 @@ def check_dense_kernel(name, args, dense_kernels):
                                  .abs().max()))
         return err
 
-    err = max(compare(args), compare(dense_ragged_args(name, args)))
+    if ragged_args is None:
+        ragged_args = dense_ragged_args(name, args)
+    err = max(compare(args), compare(ragged_args))
     ms = cuda_ms(lambda: kernel(*args), 5)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
     composite = dense_composite(name, args)
@@ -393,11 +442,14 @@ def check_dense_kernel(name, args, dense_kernels):
 
     n_q = args[0].shape[1]
     n_d = n_q if name == "tile_min_label" else args[1].shape[1]
-    ndim = args[3] if name == "tile_min_label" else args[-1]
+    ndim = (args[3] if name == "tile_min_label"
+            else args[5] if name == "tile_min_label_qd" else args[-1])
     ops = n_q * n_d * (3 * ndim - 1 + EPILOGUE_OPS[name])
     in_bytes = 4 * ndim * (n_q + (0 if name == "tile_min_label" else n_d))
     if name == "tile_min_label":
         in_bytes += 8 * n_q                      # radii and labels
+    elif name == "tile_min_label_qd":
+        in_bytes += 4 * n_q + 8 * n_d            # radii and data labels
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = (in_bytes + OUT_BYTES[name] * n_q) / PEAK_HBM_BYTES * 1e3
     return {"name": name, "route": "cuda",
@@ -407,8 +459,9 @@ def check_dense_kernel(name, args, dense_kernels):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms,
             "shape": {"n_q": n_q, "n_d": n_d, "ndim": ndim, "pairs": n_q * n_d,
-                      "ragged_check": [1000, 1000 if name == "tile_min_label"
-                                       else 1500]}}
+                      "ragged_check": [ragged_args[0].shape[1],
+                                       ragged_args[0 if name == "tile_min_label"
+                                                   else 1].shape[1]]}}
 
 
 class VitRecorder:
@@ -553,6 +606,42 @@ def check_vit_kernel(name, args, vit_kernels):
                       "mean_abs_err": mean_err}}
 
 
+def attention_split(args, vit_kernels):
+    """``fused_attention_proj`` on ``args`` by part: the LayerNorm pass,
+    the qkv GEMM, the attention core and the output GEMM, each timed alone
+    (ms), the GEMMs' TFLOP/s and the other parts' GB/s (each input read
+    once, each output written once)."""
+    import torch
+
+    x, lns, lnb, wq, bq, wo, bo, heads = args
+    b, t, width = x.shape
+    m = b * t
+    x2 = x.reshape(m, width)
+    h = vit_kernels.layernorm_cuda(x2, lns, lnb)
+    qkv = vit_kernels.gemm_cuda(h, wq, bq)
+    att = vit_kernels.attention_core_cuda(qkv, b, t, heads)
+    parts = {
+        "layernorm": (lambda: vit_kernels.layernorm_cuda(x2, lns, lnb),
+                      0, 2 * x2.numel() * 2),
+        "qkv_gemm": (lambda: vit_kernels.gemm_cuda(h, wq, bq),
+                     2 * m * width * 3 * width, 0),
+        "attention_core": (lambda: vit_kernels.attention_core_cuda(
+            qkv, b, t, heads), 4 * b * t * t * width,
+            (qkv.numel() + att.numel()) * 2),
+        "out_gemm": (lambda: vit_kernels.gemm_cuda(att, wo, bo, res=x2),
+                     2 * m * width * width, 0),
+    }
+    out = {"x": list(x.shape)}
+    for part, (fn, flop, nbytes) in parts.items():
+        fn()
+        t_ms = cuda_ms(fn, 3)
+        out[part] = {"ms": t_ms, "tflop_per_s": flop / t_ms / 1e9,
+                     "gb_per_s": nbytes / t_ms / 1e6}
+    del h, qkv, att
+    torch.cuda.empty_cache()
+    return out
+
+
 def item_rows(n_items, batch, views=4):
     """Tower rows of each classified item, as the classification stage
     chunks its items (full batches, then a tail batch, padded)."""
@@ -620,7 +709,10 @@ def profile_main_path(ds, cfg, clip_model):
                      "calls": e.count} for e in top]}
 
 
-def print_ptxas(lib_path):
+def print_ptxas(lib_path, per_kernel=False):
+    """The build's ptxas report: kernels, most registers, bytes spilled;
+    with ``per_kernel`` a line per entry function (registers, spill stores,
+    static shared memory)."""
     ptxas = lib_path.with_suffix(".log")
     if ptxas.exists():
         text = ptxas.read_text()
@@ -628,6 +720,16 @@ def print_ptxas(lib_path):
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"ptxas {lib_path.name}: {len(regs)} kernels, max "
             f"{max(regs, default=0)} registers, {sum(spills)} bytes spilled")
+        if per_kernel:
+            for entry in text.split("Compiling entry function")[1:]:
+                fn = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", entry)
+                reg = re.search(r"Used (\d+) registers", entry)
+                spill = re.search(r"(\d+) bytes spill stores", entry)
+                smem = re.search(r"(\d+) bytes smem", entry)
+                log(f"ptxas {fn.group(1) if fn else '?'}: "
+                    f"{reg.group(1) if reg else '?'} registers, "
+                    f"{spill.group(1) if spill else '?'} bytes spill stores, "
+                    f"{smem.group(1) if smem else 0} bytes static smem")
 
 
 def check_first_frames(a, b, card_emb, cpu_emb, card_clip, cpu_clip):
@@ -774,8 +876,8 @@ def main() -> int:
         lib.load()
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths)}")
-    for path in paths:
-        print_ptxas(path)
+    for lib, path in zip(libraries, paths):
+        print_ptxas(path, per_kernel=lib is vit_kernels.LIBRARY)
 
     cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
     ds = SyntheticDataset(**SCENE)
@@ -951,9 +1053,21 @@ def main() -> int:
             row["launches"] = launches[name]
             rows.append(row)
             log(f"kernel {name}: " + json.dumps(row))
+        # kernel 12 has no caller: its arguments are cut from the largest
+        # banded min-label call of the main path
+        _, args, ends = recorder.calls["banded_tile_min_label"]
+        qd_args, qd_ragged = min_label_qd_args(args, ends), min_label_qd_ragged(args)
         recorder.calls.clear()
         recorder.spans.clear()
         for name in dense_kernels.KERNEL_NAMES:
+            if name == "tile_min_label_qd":
+                row = check_dense_kernel(name, qd_args, dense_kernels,
+                                         qd_ragged)
+                row["launches"] = launches.get(name, 0)
+                rows.append(row)
+                log(f"kernel {name} (no caller; 0 launches on the main "
+                    f"path): " + json.dumps(row))
+                continue
             if name not in dense_rec.calls:
                 raise AssertionError(f"{name}: no dense call recorded")
             row = check_dense_kernel(name, dense_rec.calls.pop(name)[1],
@@ -961,9 +1075,13 @@ def main() -> int:
             row["launches"] = launches[name]
             rows.append(row)
             log(f"kernel {name}: " + json.dumps(row))
+        del qd_args, qd_ragged
         for name in vit_kernels.KERNEL_NAMES:
             if name not in vit_rec.calls:
                 raise AssertionError(f"{name}: no call recorded")
+            if name == "fused_attention_proj":
+                log("kernel fused_attention_proj by part: " + json.dumps(
+                    attention_split(vit_rec.calls[name], vit_kernels)))
             row = check_vit_kernel(name, vit_rec.calls.pop(name), vit_kernels)
             row["launches"] = launches[name]
             rows.append(row)

@@ -283,6 +283,64 @@ def test_dense_kernels_on_lattice_points_match_numpy_oracle():
     np.testing.assert_array_equal(gi.numpy(), want.argmin(axis=1))
 
 
+def _core_cloud(rng, n, ndim, noncore=0.2):
+    """A sorted-core-cloud stand-in: off-lattice points in ``ndim``
+    coordinates (two clumps and a spread), per-lane squared radii and
+    labels; a share of lanes non-core (sentinel coordinates, radius 0,
+    label >= 2**30)."""
+    pts = rng.uniform(-3.0, 3.0, (n, ndim)).astype(np.float32)
+    for c in range(2):
+        sl = slice(c * n // 4, (c + 1) * n // 4)
+        pts[sl] = (rng.uniform(-2, 2, (1, ndim))
+                   + rng.normal(0, 0.25, (n // 4, ndim))).astype(np.float32)
+    core = rng.uniform(size=n) >= noncore
+    r2 = np.where(core, rng.uniform(0.01, 0.09, n), 0.0).astype(np.float32)
+    labels = np.where(core, rng.permutation(n) + 7,
+                      2 ** 30 + rng.integers(0, 3, n)).astype(np.int32)
+    return prep_t8(_t(pts), _t(core), 1), r2, labels
+
+
+@pytest.mark.parametrize("n,d,ndim", [(512, 4096, 5), (256, 2048, 3)],
+                         ids=["512x4096-5d", "256x2048-3d"])
+def test_min_label_qd_matches_pallas(jax_dense, n, d, ndim):
+    """Kernel 12 on the shapes its JAX grid covers: a query block against a
+    DIFFERENT data window of one core cloud (overlapping lanes, labels of
+    the data lanes), per-lane radii. The JAX kernel returns the labels as
+    f32; the values are equal."""
+    rng = np.random.default_rng(38 + ndim)
+    pts_t8, r2, labels = _core_cloud(rng, 6144, ndim)
+    q0, d0 = 1024, 700
+    q_t8 = pts_t8[:, q0:q0 + n].contiguous()
+    d_t8 = pts_t8[:, d0:d0 + d].contiguous()
+    q_r2, d_r2, d_lab = r2[q0:q0 + n], r2[d0:d0 + d], labels[d0:d0 + d]
+    want = np.asarray(JK.tile_min_label_qd(
+        jnp.asarray(q_t8.numpy()), jnp.asarray(d_t8.numpy()),
+        jnp.asarray(q_r2), jnp.asarray(d_r2), jnp.asarray(d_lab), ndim=ndim))
+    TK.reset_launches()
+    got = TK.tile_min_label_qd(q_t8, d_t8, _t(q_r2), _t(d_r2), _t(d_lab),
+                               ndim)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    # the check has teeth: links found, non-core queries left at big
+    assert 0.3 < (got.numpy() < 2 ** 30).mean() < 1.0
+    assert (got.numpy()[q_r2 == 0] == 2 ** 30).all()
+    assert TK.LAUNCHES["tile_min_label_qd"] == 0      # CPU: plain version
+
+
+def test_min_label_qd_on_one_cloud_equals_min_label():
+    """``tile_min_label_qd(p, p, r, r, lab)`` is ``tile_min_label(p, r,
+    lab)`` on a ragged cloud: the contract of the CUDA kernel both share."""
+    rng = np.random.default_rng(40)
+    pts_t8, r2, labels = _core_cloud(rng, 3001, 4)
+    TK.reset_launches()
+    got = TK.tile_min_label_qd(pts_t8, pts_t8, _t(r2), _t(r2), _t(labels), 4)
+    want = TK.tile_min_label(pts_t8, _t(r2), _t(labels), 4)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (got.numpy() < 2 ** 30).sum() > 1000
+    assert all(v == 0 for v in TK.LAUNCHES.values())
+
+
 def test_dense_wrappers_count_no_cpu_launch():
     """On CPU tensors the wrappers take their plain versions: no launch is
     counted."""
@@ -338,7 +396,8 @@ def test_dense_configuration_stages_match_jax(jax_dense, dense_calls):
     # clustered and its labels transferred densely
     rounds = dense_calls.pop("tile_min_label")
     assert dense_calls == {"tile_radius_count": 8 * 4,
-                           "tile_radius_count3": 8, "tile_nearest": 2 * 8}
+                           "tile_radius_count3": 8, "tile_nearest": 2 * 8,
+                           "tile_min_label_qd": 0}
     assert rounds >= 2 * 8
     np.testing.assert_array_equal(t.ng_mask, j.ng_mask)
     np.testing.assert_allclose(t.ng_entropy, j.ng_entropy, atol=1e-6, rtol=0)

@@ -3,6 +3,7 @@
 //   dense_count      <- tile_radius_count   (pallas_kernels.py:93)
 //   dense_count3     <- tile_radius_count3  (pallas_kernels.py:136)
 //   dense_min_label  <- tile_min_label      (pallas_kernels.py:187)
+//   dense_min_label_qd <- tile_min_label_qd (pallas_kernels.py:241)
 //   dense_nearest    <- tile_nearest        (pallas_kernels.py:531)
 //
 // What they compute. Clouds are (8, N) float32, row-major (row c holds
@@ -16,9 +17,11 @@
 // agree bit for bit.
 //   count     per query, data points with dist2 <= r2 (self included);
 //   count3    the same at three squared levels -> (N, 3);
-//   min_label per point, the minimum label over points with
+//   min_label per query, the minimum label over data points with
 //             dist2 <= max(r2_q, r2_d), else big (mutual-reachability
-//             linkage; query and data are the same cloud);
+//             linkage); one kernel for both entries: dense_min_label
+//             passes the same cloud as query and data, dense_min_label_qd
+//             a query block and a different data window;
 //   nearest   per query, the least dist2 and the FIRST data index that
 //             reaches it (Pallas: argmin within a tile, strict < across).
 //
@@ -147,24 +150,24 @@ count3_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
 
 template <int NDIM>
 __global__ void __launch_bounds__(kBlock)
-min_label_kernel(const float* __restrict__ pts, int n, int chunk,
-                 const float* __restrict__ radius2,
-                 const int* __restrict__ labels, int big,
-                 int* __restrict__ out) {
+min_label_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
+                 int nd, int chunk, const float* __restrict__ q_r2,
+                 const float* __restrict__ d_r2, const int* __restrict__ labels,
+                 int big, int* __restrict__ out) {
   __shared__ float sd[NDIM * kBlock];
   __shared__ float sr2[kBlock];
   __shared__ int slab[kBlock];
   const int qi = blockIdx.x * kBlock + threadIdx.x;
   int j0, j1;
-  split_range(n, chunk, j0, j1);
+  split_range(nd, chunk, j0, j1);
   float qv[NDIM];
-  load_query<NDIM>(pts, n, qi, qv);
-  const float qr2 = qi < n ? radius2[qi] : 0.f;
+  load_query<NDIM>(q, nq, qi, qv);
+  const float qr2 = qi < nq ? q_r2[qi] : 0.f;
   int best = big;
   for (int j = j0; j < j1; j += kBlock) {
-    stage<NDIM>(pts, n, j, sd);
-    if (j + threadIdx.x < n) {
-      sr2[threadIdx.x] = radius2[j + threadIdx.x];
+    stage<NDIM>(d, nd, j, sd);
+    if (j + threadIdx.x < nd) {
+      sr2[threadIdx.x] = d_r2[j + threadIdx.x];
       slab[threadIdx.x] = labels[j + threadIdx.x];
     }
     __syncthreads();
@@ -177,7 +180,7 @@ min_label_kernel(const float* __restrict__ pts, int n, int chunk,
     }
     __syncthreads();
   }
-  if (qi < n && best < big) atomicMin(out + qi, best);
+  if (qi < nq && best < big) atomicMin(out + qi, best);
 }
 
 template <int NDIM>
@@ -289,8 +292,21 @@ int dense_min_label(const float* pts, int n, const float* radius2,
   int chunk;
   dim3 grid;
   if (!grid_for(n, n, grid, chunk)) return (int)cudaErrorInvalidValue;
-  DISPATCH_NDIM(ndim, min_label_kernel, pts, n, chunk, radius2, labels, big,
-                out);
+  DISPATCH_NDIM(ndim, min_label_kernel, pts, n, pts, n, chunk, radius2,
+                radius2, labels, big, out);
+  return (int)cudaGetLastError();
+}
+
+// out (nq,) int32, filled with big by the caller; labels (nd,) of the data
+int dense_min_label_qd(const float* q, int nq, const float* d, int nd,
+                       const float* q_r2, const float* d_r2, const int* labels,
+                       int ndim, int big, int* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int chunk;
+  dim3 grid;
+  if (!grid_for(nq, nd, grid, chunk)) return (int)cudaErrorInvalidValue;
+  DISPATCH_NDIM(ndim, min_label_kernel, q, nq, d, nd, chunk, q_r2, d_r2,
+                labels, big, out);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,10 @@ Three functions of a ViT residual block, each one kernel on the TPU:
 
 Weights keep the flax layout (``kernel`` is (in, out)). Each wrapper takes
 its plain version only for CPU tensors; for CUDA tensors it composes the
-device functions of ``csrc/vit.cu`` (a LayerNorm-statistics pass, a bf16
-tensor-core GEMM with LayerNorm prologue and bias / quickGELU / residual
-epilogue, and an attention core) or raises. The plain versions round where
+device functions of ``csrc/vit.cu`` (a LayerNorm pass, a bf16 GEMM on
+Hopper's tensor cores, TMA loads into an mbarrier ring and ``wgmma``, with
+a bias / quickGELU / residual epilogue, and an attention core with S and P
+in registers) or raises. They need sm_90a. The plain versions round where
 the Pallas kernels round (bf16 after the LayerNorm, after each bias, after
 quickGELU, after each head's ``w @ v``) and multiply the bf16 operands in
 f32 with TF32 off, so kernel and plain version differ only in summation
@@ -37,10 +38,10 @@ HEAD_DIM = 64  # the CUDA attention core's head width
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary("vit.cu", {
-    # x, M, K, stats, stream
-    "vit_ln_stats": (_P, _I, _I, _P, _P),
-    # A, W, bias, stats, ln_scale, ln_bias, res, C, M, N, K, gelu, stream
-    "vit_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, M, K, ln_scale, ln_bias, h, stream
+    "vit_layernorm": (_P, _I, _I, _P, _P, _P, _P),
+    # A, W, bias, res, C, M, N, K, gelu, stream
+    "vit_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # qkv, att, B, T, W, heads, scale, stream
     "vit_attention": (_P, _P, _I, _I, _I, _I, _F, _P),
 })
@@ -141,32 +142,48 @@ def _check(name, device, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
+MAX_TOKENS = 320  # the attention core's longest sequence (vit.cu kMaxT)
+
+
 def _check_dims(name, m, k, n):
-    if m <= 0 or k % 32 or n % 64:
-        raise ValueError(f"{name}: the CUDA GEMM needs rows > 0, an inner "
-                         f"width in multiples of 32 and an outer width in "
-                         f"multiples of 64, got ({m}, {k}) x ({k}, {n})")
+    """The GEMM's TMA rows and its epilogue's vectors are 16 bytes: inner
+    and outer widths in multiples of 8."""
+    if m <= 0 or k <= 0 or n <= 0 or k % 8 or n % 8:
+        raise ValueError(f"{name}: the CUDA GEMM needs rows > 0 and inner "
+                         f"and outer widths in multiples of 8, got "
+                         f"({m}, {k}) x ({k}, {n})")
 
 
-def _ln_stats(lib, x2, stream):
-    stats = torch.empty((x2.shape[0], 2), dtype=torch.float32, device=x2.device)
-    launch(lib.vit_ln_stats, x2.data_ptr(), x2.shape[0], x2.shape[1],
-           stats.data_ptr(), stream)
-    return stats
+def layernorm_cuda(x2, ln_scale, ln_bias):
+    """h = bf16(LN(x2)) over the rows of a (M, K) bf16 CUDA tensor (one
+    launch, not counted)."""
+    h = torch.empty_like(x2)
+    launch(LIBRARY.load().vit_layernorm, x2.data_ptr(), x2.shape[0],
+           x2.shape[1], ln_scale.data_ptr(), ln_bias.data_ptr(), h.data_ptr(),
+           stream_of(x2.device))
+    return h
 
 
-def _gemm(lib, a, w, bias, stream, stats=None, ln=None, res=None,
-          gelu=False):
+def gemm_cuda(a, w, bias, res=None, gelu=False):
+    """epilogue(a (M, K) @ w (K, N) + bias) on the tensor cores, with
+    quickGELU or ``+ res`` (M, N) (one launch, not counted)."""
     m, k = a.shape
     n = w.shape[1]
     c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    launch(lib.vit_gemm, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-           None if stats is None else stats.data_ptr(),
-           None if ln is None else ln[0].data_ptr(),
-           None if ln is None else ln[1].data_ptr(),
-           None if res is None else res.data_ptr(), c.data_ptr(), m, n, k,
-           int(gelu), stream)
+    launch(LIBRARY.load().vit_gemm, a.data_ptr(), w.data_ptr(),
+           bias.data_ptr(), None if res is None else res.data_ptr(),
+           c.data_ptr(), m, n, k, int(gelu), stream_of(a.device))
     return c
+
+
+def attention_core_cuda(qkv, b, t, heads):
+    """softmax(q k^T / 8) v per (image, head) over qkv (B*T, 3W) bf16 ->
+    (B*T, W) (one launch, not counted)."""
+    width = heads * HEAD_DIM
+    att = torch.empty((b * t, width), dtype=torch.bfloat16, device=qkv.device)
+    launch(LIBRARY.load().vit_attention, qkv.data_ptr(), att.data_ptr(), b, t,
+           width, heads, 1.0 / math.sqrt(HEAD_DIM), stream_of(qkv.device))
+    return att
 
 
 def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
@@ -184,20 +201,18 @@ def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     if width != heads * HEAD_DIM:
         raise ValueError(f"{name}: the CUDA attention core takes heads of "
                          f"{HEAD_DIM}, got width {width} over {heads} heads")
+    if t > MAX_TOKENS:
+        raise ValueError(f"{name}: the CUDA attention core takes at most "
+                         f"{MAX_TOKENS} tokens, got {t}")
     _check(name, x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias,
            w_qkv=w_qkv, b_qkv=b_qkv, w_out=w_out, b_out=b_out)
     m = b * t
     _check_dims(name, m, width, 3 * width)
     with torch.cuda.device(x.device):
-        lib, stream = LIBRARY.load(), stream_of(x.device)
         x2 = x.reshape(m, width)
-        stats = _ln_stats(lib, x2, stream)
-        qkv = _gemm(lib, x2, w_qkv, b_qkv, stream, stats=stats,
-                    ln=(ln_scale, ln_bias))
-        att = torch.empty((m, width), dtype=torch.bfloat16, device=x.device)
-        launch(lib.vit_attention, qkv.data_ptr(), att.data_ptr(), b, t,
-               width, heads, 1.0 / math.sqrt(HEAD_DIM), stream)
-        out = _gemm(lib, att, w_out, b_out, stream, res=x2)
+        qkv = gemm_cuda(layernorm_cuda(x2, ln_scale, ln_bias), w_qkv, b_qkv)
+        att = attention_core_cuda(qkv, b, t, heads)
+        out = gemm_cuda(att, w_out, b_out, res=x2)
     LAUNCHES[name] += 1
     return out.reshape(b, t, width)
 
@@ -215,11 +230,9 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
     _check_dims(name, m, k, w_fc.shape[1])
     _check_dims(name, m, w_fc.shape[1], k)
     with torch.cuda.device(x.device):
-        lib, stream = LIBRARY.load(), stream_of(x.device)
-        stats = _ln_stats(lib, x, stream)
-        g = _gemm(lib, x, w_fc, b_fc, stream, stats=stats,
-                  ln=(ln_scale, ln_bias), gelu=True)
-        out = _gemm(lib, g, w_proj, b_proj, stream, res=x)
+        g = gemm_cuda(layernorm_cuda(x, ln_scale, ln_bias), w_fc, b_fc,
+                      gelu=True)
+        out = gemm_cuda(g, w_proj, b_proj, res=x)
     LAUNCHES[name] += 1
     return out
 
@@ -236,9 +249,7 @@ def fused_mlp(x, w_fc, b_fc, w_proj, b_proj):
     _check_dims(name, m, k, w_fc.shape[1])
     _check_dims(name, m, w_fc.shape[1], k)
     with torch.cuda.device(x.device):
-        lib, stream = LIBRARY.load(), stream_of(x.device)
-        g = _gemm(lib, x, w_fc, b_fc, stream, gelu=True)
-        out = _gemm(lib, g, w_proj, b_proj, stream)
+        out = gemm_cuda(gemm_cuda(x, w_fc, b_fc, gelu=True), w_proj, b_proj)
     LAUNCHES[name] += 1
     return out
 

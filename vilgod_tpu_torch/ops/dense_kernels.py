@@ -1,7 +1,10 @@
 """The dense (all-pairs) neighbour kernels: CUDA wrappers, plain PyTorch
-versions and launch counts. The port of the four dense ``tile_*`` kernels
-of ``vilgod_tpu/ops/pallas_kernels.py`` (the small-input and overflow
-paths of ``ops/neighbors.py``, ``ops/entropy.py`` and ``ops/cluster.py``).
+versions and launch counts. The port of the five dense ``tile_*`` kernels
+of ``vilgod_tpu/ops/pallas_kernels.py``: four on the small-input and
+overflow paths of ``ops/neighbors.py``, ``ops/entropy.py`` and
+``ops/cluster.py``, and ``tile_min_label_qd``, which has no caller in
+either package (the per-block min-label pass that the single-launch banded
+kernels replaced).
 
 Layout as in ``ops/kernels.py``: clouds are ``(8, N)`` float32 from
 :func:`~vilgod_tpu_torch.ops.kernels.prep_t8` with invalid points at the
@@ -25,7 +28,7 @@ from ..utils.cuda_build import CudaLibrary, launch, stream_of
 from .kernels import _check, _dist2_t8, _plain_chunk
 
 KERNEL_NAMES = ("tile_radius_count", "tile_radius_count3", "tile_min_label",
-                "tile_nearest")
+                "tile_nearest", "tile_min_label_qd")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -63,13 +66,18 @@ def count3_plain(q_t8, d_t8, levels2, ndim):
 
 
 def min_label_plain(pts_t8, radius2, labels, ndim, big):
-    out = torch.full((pts_t8.shape[1],), big, dtype=torch.int32,
-                     device=pts_t8.device)
-    big_t = torch.tensor(big, dtype=torch.int32, device=pts_t8.device)
-    for k, dist2 in _columns(pts_t8, pts_t8, ndim):
+    return min_label_qd_plain(pts_t8, pts_t8, radius2, radius2, labels, ndim,
+                              big)
+
+
+def min_label_qd_plain(q_t8, d_t8, q_r2, d_r2, labels, ndim, big):
+    out = torch.full((q_t8.shape[1],), big, dtype=torch.int32,
+                     device=q_t8.device)
+    big_t = torch.tensor(big, dtype=torch.int32, device=q_t8.device)
+    for k, dist2 in _columns(q_t8, d_t8, ndim):
         e = k + dist2.shape[1]
         # max-radius joint: HDBSCAN mutual-reachability linkage
-        joint = torch.maximum(radius2[:, None], radius2[k:e][None, :])
+        joint = torch.maximum(q_r2[:, None], d_r2[k:e][None, :])
         cand = torch.where(dist2 <= joint, labels[k:e][None, :], big_t)
         out = torch.minimum(out, cand.amin(dim=1))
     return out
@@ -104,6 +112,8 @@ LIBRARY = CudaLibrary("dense.cu", {
     "dense_count3": (_P, _I, _P, _I, _I, _P, _P, _P),
     # pts, n, radius2, labels, ndim, big, out, stream
     "dense_min_label": (_P, _I, _P, _P, _I, _I, _P, _P),
+    # q, nq, d, nd, q_r2, d_r2, labels, ndim, big, out, stream
+    "dense_min_label_qd": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P),
     # q, nq, d, nd, ndim, keys, dist, idx, stream
     "dense_nearest": (_P, _I, _P, _I, _I, _P, _P, _P, _P),
 }, extra_flags=("-fmad=false",))
@@ -190,6 +200,37 @@ def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30):
     return out
 
 
+def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,
+                      big: int = 2 ** 30):
+    """Per query: the minimum label over DATA points within max(q_r2,
+    d_r2), else ``big`` -> (Nq,) int32; query and data are different clouds
+    (a query block and a data window of the sorted core cloud), ``labels``
+    are the data's. Lanes that take no part carry sentinel coordinates,
+    radius 0 and a label >= ``big``. Replaces
+    ``pallas_kernels.tile_min_label_qd``, which returns the same values as
+    f32 (labels carried as f32, exact below 2**24) and covers only query
+    counts <= 512 or multiples of 512 and data counts in multiples of 2048;
+    this wrapper takes any sizes."""
+    name = "tile_min_label_qd"
+    _check_clouds(name, q_t8, d_t8, ndim)
+    _check(name, {"q_t8": q_t8, "d_t8": d_t8, "q_r2": q_r2, "d_r2": d_r2,
+                  "labels": labels},
+           (torch.float32,) * 4 + (torch.int32,), q_t8.device)
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    if q_r2.shape != (n_q,) or d_r2.shape != (n_d,) or labels.shape != (n_d,):
+        raise ValueError(f"{name}: q_r2 must be ({n_q},), d_r2 and labels "
+                         f"({n_d},)")
+    if not q_t8.is_cuda:
+        return min_label_qd_plain(q_t8, d_t8, q_r2, d_r2, labels, ndim, big)
+    out = torch.full((n_q,), big, dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, LIBRARY.load().dense_min_label_qd, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), n_d, q_r2.data_ptr(), d_r2.data_ptr(),
+                labels.data_ptr(), ndim, int(big), out.data_ptr(),
+                stream_of(q_t8.device))
+    return out
+
+
 def tile_nearest(q_t8, d_t8, ndim: int = 3):
     """Per query: the nearest data point -> (dist2 (Nq,) f32, data index
     (Nq,) int32); the lowest index wins ties. Replaces
@@ -217,4 +258,5 @@ PLAIN = {
     "tile_radius_count3": count3_plain,
     "tile_min_label": min_label_plain,
     "tile_nearest": nearest_plain,
+    "tile_min_label_qd": min_label_qd_plain,
 }
