@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit; build the CUDA sources of
    vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu) with nvcc for
-   sm_90a, one nvcc each, started together (timed);
+   sm_90a, one nvcc each, started together (timed); ptxas's registers,
+   spill stores and static shared memory per kernel of banded.cu and
+   vit.cu;
 2. card against CPU, first half: the first 4 frames of the scene below
    through ground -> entropy -> clustering -> filter -> classification on
    the card, classified by a narrow bf16 tower on which the fused attention
@@ -34,7 +36,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    24 times each;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
-   banded kernels also on a forced full-width (overflow) call each, the
+   banded kernels also on a forced full-width (overflow) call each
+   (``banded_tile_count`` and ``banded_tile_min_label`` take each block's
+   span end on the main path and none at full width; their span call must
+   also equal the same call over the whole windows on every valid query
+   lane), the
    dense kernels also on a ragged call (N not a multiple of 256) each
    (counts, labels and indices equal, squared distances bitwise equal);
    ``tile_min_label_qd``, which no path calls, on a 512-lane query block
@@ -145,12 +151,13 @@ class FirstFrames:
         return self.source.get_pose(fnr)
 
 
-# argument positions of each wrapper (as ops/banded.py calls them)
+# argument positions of each wrapper (as ops/banded.py calls them); kernels
+# 1 and 3 also take each block's span end
 POS = {
-    "banded_tile_count": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6),
+    "banded_tile_count": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6, ends=7),
     "banded_tile_count3": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6),
     "banded_tile_min_label": dict(q=0, r2=1, lab=2, starts=3, tq=4, w=5,
-                                  ndim=6),
+                                  ndim=6, ends=8),
     "banded_tile_nearest": dict(q=0, d=1, starts=2, tq=3, w=4, ndim=5),
 }
 OUT_BYTES = {"banded_tile_count": 4, "banded_tile_count3": 12,
@@ -162,9 +169,10 @@ OUT_BYTES = {"banded_tile_count": 4, "banded_tile_count3": 12,
 
 class Recorder:
     """Keeps, per kernel wrapper, the arguments of its largest banded call
-    (window narrower than the data) while ``active``, with the true end of
-    each query block's candidate span where ``block_windows`` gave the
-    window starts (the data-dependent work of the call)."""
+    (window narrower than the data) while ``active`` (positional, defaults
+    applied), with the true end of each query block's candidate span (the
+    data-dependent work of the call): the call's own ``ends`` for kernels 1
+    and 3, else the one ``block_windows`` gave with the window starts."""
 
     def __init__(self, kernels, window_modules):
         self.active, self.calls, self.spans = False, {}, {}
@@ -183,19 +191,25 @@ class Recorder:
         return wrapper
 
     def _wrap(self, name, fn):
-        pos = POS[name]
+        pos, sig = POS[name], inspect.signature(fn)
 
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             if self.active:
-                q, w = args[pos["q"]], args[pos["w"]]
-                n_d = args[pos.get("d", pos["q"])].shape[1]
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                a = bound.args
+                q, w = a[pos["q"]], a[pos["w"]]
+                n_d = a[pos.get("d", pos["q"])].shape[1]
                 key = (w < n_d, q.shape[1] * w)
                 if name not in self.calls or key > self.calls[name][0]:
-                    starts = args[pos["starts"]]
-                    span = self.spans.get(id(starts))
-                    ends = span[1] if span and span[0] is starts else None
-                    self.calls[name] = (key, args, ends)
-            return fn(*args)
+                    if "ends" in pos:
+                        ends = a[pos["ends"]]
+                    else:
+                        starts = a[pos["starts"]]
+                        span = self.spans.get(id(starts))
+                        ends = span[1] if span and span[0] is starts else None
+                    self.calls[name] = (key, a, ends)
+            return fn(*args, **kwargs)
         wrapper.wrapped = fn
         return wrapper
 
@@ -214,7 +228,8 @@ def cuda_ms(fn, reps):
 
 def full_width_args(name, args, m):
     """The same pass over the first ``m`` sorted ranks at full width
-    (starts 0, w = m): the overflow re-run of the main path."""
+    (starts 0, w = m, no span ends): the overflow re-run of the main
+    path."""
     import torch
     pos, a = POS[name], list(args)
     for k in ("q", "d"):
@@ -226,6 +241,15 @@ def full_width_args(name, args, m):
     a[pos["starts"]] = torch.zeros(m // args[pos["tq"]], dtype=torch.int32,
                                    device=args[0].device)
     a[pos["w"]] = m
+    if "ends" in pos:
+        a[pos["ends"]] = None
+    return tuple(a)
+
+
+def without_ends(name, args):
+    """The same call over each block's whole window (``ends`` None)."""
+    a = list(args)
+    a[POS[name]["ends"]] = None
     return tuple(a)
 
 
@@ -243,8 +267,10 @@ def pairs_needed(args, pos, ends):
 
 def check_kernel(name, args, kernels, m, ends=None):
     """Kernel vs plain version on the main path's ``args`` and on a forced
-    full-width call over the first ``m`` ranks; times and bound. Returns
-    the JSON row (launches filled in by the caller)."""
+    full-width call over the first ``m`` ranks; for kernels 1 and 3 the
+    span call also against the same call over the whole windows, equal on
+    every valid query lane; times and bound. Returns the JSON row (launches
+    filled in by the caller)."""
     import torch
 
     kernel = getattr(kernels, name).wrapped
@@ -270,10 +296,17 @@ def check_kernel(name, args, kernels, m, ends=None):
         return err
 
     err = max(compare(args), compare(full_width_args(name, args, m)))
-    ms = cuda_ms(lambda: kernel(*args), 5)
+    pos = POS[name]
+    if "ends" in pos and ends is not None:
+        valid = args[pos["q"]][0] < kernels.SENTINEL
+        whole = kernel(*without_ends(name, args))
+        if not torch.equal(kernel(*args)[valid], whole[valid]):
+            raise AssertionError(f"{name}: the span call differs from the "
+                                 "whole-window call on valid query lanes")
+        del whole
+    ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
 
-    pos = POS[name]
     n_q, w, ndim = args[pos["q"]].shape[1], args[pos["w"]], args[pos["ndim"]]
     n_d = args[pos["d"]].shape[1] if "d" in pos else 0
     pairs = pairs_needed(args, pos, ends)
@@ -289,8 +322,9 @@ def check_kernel(name, args, kernels, m, ends=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "shape": {"n_q": n_q, "n_d": n_d or n_q, "w": w, "ndim": ndim,
-                      "pairs_scanned": n_q * w, "pairs_needed": pairs,
-                      "full_width_check_cols": m}}
+                      "pairs_scanned": (pairs if "ends" in pos
+                                        and ends is not None else n_q * w),
+                      "pairs_needed": pairs, "full_width_check_cols": m}}
 
 
 class DenseRecorder:
@@ -339,7 +373,7 @@ def min_label_qd_args(args, ends, n_q=512):
     ``n_q`` query lanes from the query block with the longest true candidate
     span (the middle block where the span is unknown) and that block's
     window of w data lanes, with both radii and the data's labels."""
-    pts_t8, r2, lab, starts, tq, w, ndim, big = args
+    pts_t8, r2, lab, starts, tq, w, ndim, big = args[:8]
     n = pts_t8.shape[1]
     if ends is not None:
         blk = int((ends - starts).clamp(0, w).argmax())
@@ -355,7 +389,7 @@ def min_label_qd_args(args, ends, n_q=512):
 def min_label_qd_ragged(args, n_q=1000, n_d=1500):
     """The ragged kernel-12 call: the first ``n_q`` lanes of the cloud
     against ``n_d`` lanes of the window (neither a multiple of 256)."""
-    pts_t8, r2, lab, starts, tq, w, ndim, big = args
+    pts_t8, r2, lab, starts, tq, w, ndim, big = args[:8]
     s = min(max(int(starts[starts.numel() // 2]), 0), pts_t8.shape[1] - n_d)
     return (pts_t8[:, :n_q].contiguous(), pts_t8[:, s:s + n_d].contiguous(),
             r2[:n_q].contiguous(), r2[s:s + n_d].contiguous(),
@@ -711,8 +745,8 @@ def profile_main_path(ds, cfg, clip_model):
 
 def print_ptxas(lib_path, per_kernel=False):
     """The build's ptxas report: kernels, most registers, bytes spilled;
-    with ``per_kernel`` a line per entry function (registers, spill stores,
-    static shared memory)."""
+    with ``per_kernel`` a line per entry function and template instance
+    (registers, spill stores, static shared memory)."""
     ptxas = lib_path.with_suffix(".log")
     if ptxas.exists():
         text = ptxas.read_text()
@@ -722,11 +756,17 @@ def print_ptxas(lib_path, per_kernel=False):
             f"{max(regs, default=0)} registers, {sum(spills)} bytes spilled")
         if per_kernel:
             for entry in text.split("Compiling entry function")[1:]:
-                fn = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", entry)
+                # the mangled name's length prefix, the name, its
+                # template arguments (count3_kernel<6>, min_label_kernel<6>)
+                fn = re.search(r"\d\d?((?:[a-z]+\d?_)+kernel)"
+                               r"(?:I((?:Li\d+E)+)E)?", entry)
                 reg = re.search(r"Used (\d+) registers", entry)
                 spill = re.search(r"(\d+) bytes spill stores", entry)
                 smem = re.search(r"(\d+) bytes smem", entry)
-                log(f"ptxas {fn.group(1) if fn else '?'}: "
+                name = fn.group(1) if fn else "?"
+                if fn and fn.group(2):
+                    name += f"<{', '.join(re.findall(r'\d+', fn.group(2)))}>"
+                log(f"ptxas {name}: "
                     f"{reg.group(1) if reg else '?'} registers, "
                     f"{spill.group(1) if spill else '?'} bytes spill stores, "
                     f"{smem.group(1) if smem else 0} bytes static smem")
@@ -877,7 +917,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths)}")
     for lib, path in zip(libraries, paths):
-        print_ptxas(path, per_kernel=lib is vit_kernels.LIBRARY)
+        print_ptxas(path, per_kernel=lib is not dense_kernels.LIBRARY)
 
     cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
     ds = SyntheticDataset(**SCENE)

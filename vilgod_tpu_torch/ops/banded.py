@@ -14,6 +14,11 @@ The four banded ops below hand the window math to the CUDA kernels of
 ``[start, start + w)`` with ``start`` clamped into ``[0, n_d - w]`` as
 ``jax.lax.dynamic_slice`` does in the JAX package's XLA fallback, so the
 results equal that fallback everywhere, padded and invalid rows included.
+The radius count and the min-label pass also take ``ends``, each block's
+true span end from :func:`block_windows`, as the JAX package's Pallas
+kernels do; they then scan only ``[start, min(end, start + w))``, which
+gives the same results on every valid query row (see
+:func:`.kernels.banded_tile_count`).
 """
 from __future__ import annotations
 
@@ -124,8 +129,9 @@ def full_width(n_data: int) -> int:
 # ---------------------------------------------------------------------------
 
 def banded_radius_count(q_t8, d_t8, starts, r2: float, tq: int, w_band: int,
-                        ndim: int = 3) -> torch.Tensor:
-    return kernels.banded_tile_count(q_t8, d_t8, starts, r2, tq, w_band, ndim)
+                        ndim: int = 3, ends=None) -> torch.Tensor:
+    return kernels.banded_tile_count(q_t8, d_t8, starts, r2, tq, w_band, ndim,
+                                     ends)
 
 
 def banded_radius_count3(q_t8, d_t8, starts, levels2: torch.Tensor, tq: int,
@@ -135,7 +141,8 @@ def banded_radius_count3(q_t8, d_t8, starts, levels2: torch.Tensor, tq: int,
 
 
 def banded_min_label(pts_t8, radius2_row, labels_row, starts, tq: int,
-                     w_band: int, ndim: int, big: int) -> torch.Tensor:
+                     w_band: int, ndim: int, big: int,
+                     ends=None) -> torch.Tensor:
     """One min-label propagation pass over the sorted core cloud.
     radius2_row (N,) f32 and labels_row (N,) int32 align with pts_t8."""
     # the JAX package carries labels as f32 lanes, exact only below 2**24;
@@ -145,7 +152,7 @@ def banded_min_label(pts_t8, radius2_row, labels_row, starts, tq: int,
         f"banded_min_label: {pts_t8.shape[1]} points exceeds the float32 "
         "label-lane exactness limit (2**24); split into more pages")
     return kernels.banded_tile_min_label(pts_t8, radius2_row, labels_row,
-                                         starts, tq, w_band, ndim, big)
+                                         starts, tq, w_band, ndim, big, ends)
 
 
 def banded_nearest(q_t8, d_t8, starts, tq: int, w_band: int, ndim: int = 3):

@@ -171,12 +171,13 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     tq_l, tq_h = min(TQ, n), min(TQ_HEAVY, n)
 
     def window(cid_q, cid_d, tq):
-        """(starts, width) of one pass: banded, or full width on overflow."""
-        starts, _, ovf = block_windows(cid_q, cid_d, tq, w_band,
-                                       invalid_cid=invalid_cid)
+        """(starts, width, ends) of one pass: banded with each block's span
+        end, or full width (ends None) on overflow."""
+        starts, ends, ovf = block_windows(cid_q, cid_d, tq, w_band,
+                                          invalid_cid=invalid_cid)
         if w_band == w_full or bool(ovf):
-            return torch.zeros_like(starts), w_full, ovf
-        return starts, w_band, ovf
+            return torch.zeros_like(starts), w_full, None
+        return starts, w_band, ends
 
     pts_t8 = prep_t8(points, mask, 1)
     s_h, w_h, _ = window(cid_sorted, cid_sorted, tq_h)
@@ -200,7 +201,7 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     cid_c = torch.where(valid_c, cid_sorted[src_cl], invalid_cid)
     r2_c = torch.where(valid_c, radius2[src_cl], 0.0).to(torch.float32)
     core_t8 = prep_t8(pts_c, valid_c, 1)
-    s_p, w_p, _ = window(cid_c, cid_c, tq_h)
+    s_p, w_p, e_p = window(cid_c, cid_c, tq_h)
 
     # propagation runs in compacted space with compacted label values:
     # the compaction is order-preserving, so the minima are the same
@@ -209,7 +210,7 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     def radius_min(labels_c):
         lab = torch.where(valid_c, labels_c, _BIG_LABEL).to(torch.int32)
         best = banded_min_label(core_t8, r2_c, lab, s_p, tq_h, w_p, ndim,
-                                _BIG_LABEL)[:n]
+                                _BIG_LABEL, ends=e_p)[:n]
         best = torch.clamp(best, max=big)
         return torch.where(valid_c, torch.minimum(labels_c, best), big)
 
@@ -228,7 +229,7 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     # compacted data both have to fit the band.
     s_l, _, ovf_l = block_windows(cid_sorted, cid_sorted, tq_l, w_band,
                                   invalid_cid=invalid_cid)
-    s_n, w_n, ovf_n = window(cid_sorted, cid_c, tq_l)
+    s_n, w_n, _ = window(cid_sorted, cid_c, tq_l)
     if w_n != w_full and bool(ovf_l):
         s_n, w_n = torch.zeros_like(s_n), w_full
     nearest_d2, nc = banded_nearest(pts_t8, core_t8, s_n, tq_l, w_n,

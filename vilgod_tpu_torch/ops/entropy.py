@@ -89,12 +89,13 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
     def pair_counts(fnr, wf):
         q_t8, cq, order = sorted_q[fnr]
         d_t8, cd, _ = sorted_d[wf]
-        starts, _, ovf = block_windows(cq, cd, tq, w_band)
+        starts, ends, ovf = block_windows(cq, cd, tq, w_band)
         w_pass = w_band
         if w_band != n_d and bool(ovf):
             # overflow: the SAME banded pass at full width
-            starts, w_pass = torch.zeros_like(starts), n_d
-        c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w_pass)[:n]
+            starts, ends, w_pass = torch.zeros_like(starts), None, n_d
+        c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w_pass,
+                                ends=ends)[:n]
         c_un = torch.zeros(n, dtype=torch.int32, device=frames.device)
         c_un[order] = c
         return torch.clamp(torch.where(masks[fnr], c_un, 0),

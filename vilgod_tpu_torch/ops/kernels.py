@@ -7,10 +7,12 @@ rows, ``(8, N)`` float32 with x, y, z[, f3, f4, f5] in the leading rows
 and zeros below; invalid points sit at a far ``SENTINEL`` coordinate so
 no radius reaches them. Each query block of ``tq`` sorted points scans
 the data window ``[start, start + w)`` (``start`` clamped into
-``[0, n_d - w]``), computing squared distances in difference form,
-``(q - d)**2`` summed over rows 0..ndim-1 in order, each product and sum
-rounded on its own (no FMA), so kernel and plain version agree bit for
-bit and sit on the same side of every threshold.
+``[0, n_d - w]``), or, where the count and min-label passes are given
+``ends``, only the block's true candidate span ``[start, min(end, start +
+w))``. Squared distances are in difference form, ``(q - d)**2`` summed
+over rows 0..ndim-1 in order, each product and sum rounded on its own (no
+FMA), so kernel and plain version agree bit for bit and sit on the same
+side of every threshold.
 
 Each wrapper takes its plain version only for CPU tensors. For CUDA
 tensors it launches its kernel from ``csrc/banded.cu`` (built by
@@ -20,6 +22,7 @@ falls back. ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +40,9 @@ SENTINEL = 1.0e6
 # one CUDA thread block holds this many queries and stages this many data
 # points per shared-memory chunk; tq and every window width are multiples
 _CUDA_BLOCK = 256
+# the count and min-label kernels split each block's span over gridDim.y
+# until the grid has about this many blocks per SM
+_BLOCKS_PER_SM = 4
 
 KERNEL_NAMES = ("banded_tile_count", "banded_tile_count3",
                 "banded_tile_min_label", "banded_tile_nearest")
@@ -85,23 +91,26 @@ def _plain_chunk(device) -> int:
     return 512 if device.type == "cpu" else 2048
 
 
-def _tiles(q_t8, d_t8, starts, tq, w, ndim):
+def _tiles(q_t8, d_t8, starts, tq, w, ndim, ends=None):
     """(query slice, global rank of the tile's first column, dist2 tile)
-    over every query block's window [s, s + w), s clamped into
-    [0, n_d - w]."""
+    over every query block's span [s, e): s clamped into [0, n_d - w],
+    e = s + w, or min(ends[b], s + w) where ``ends`` is given (an empty
+    span yields no tile)."""
     n_d = d_t8.shape[1]
     chunk = _plain_chunk(q_t8.device)
-    for b, s in enumerate(starts.tolist()):
+    ends = [None] * starts.numel() if ends is None else ends.tolist()
+    for b, (s, e) in enumerate(zip(starts.tolist(), ends)):
         s = min(max(s, 0), n_d - w)
+        e = s + w if e is None else max(s, min(e, s + w))
         qs = slice(b * tq, (b + 1) * tq)
-        for k in range(s, s + w, chunk):
-            e = min(k + chunk, s + w)
-            yield qs, k, e, _dist2_t8(q_t8[:, qs], d_t8[:, k:e], ndim)
+        for k in range(s, e, chunk):
+            hi = min(k + chunk, e)
+            yield qs, k, hi, _dist2_t8(q_t8[:, qs], d_t8[:, k:hi], ndim)
 
 
-def count_plain(q_t8, d_t8, starts, r2, tq, w, ndim):
+def count_plain(q_t8, d_t8, starts, r2, tq, w, ndim, ends=None):
     out = torch.zeros(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
-    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim, ends):
         out[qs] += (dist2 <= r2).sum(dim=1, dtype=torch.int32)
     return out
 
@@ -115,11 +124,13 @@ def count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim):
     return out
 
 
-def min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim, big):
+def min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim, big,
+                    ends=None):
     out = torch.full((pts_t8.shape[1],), big, dtype=torch.int32,
                      device=pts_t8.device)
     big_t = torch.tensor(big, dtype=torch.int32, device=pts_t8.device)
-    for qs, k, e, dist2 in _tiles(pts_t8, pts_t8, starts, tq, w, ndim):
+    for qs, k, e, dist2 in _tiles(pts_t8, pts_t8, starts, tq, w, ndim,
+                                  ends):
         # max-radius joint: HDBSCAN mutual-reachability linkage
         joint = torch.maximum(radius2[qs][:, None], radius2[k:e][None, :])
         cand = torch.where(dist2 <= joint, labels[k:e][None, :], big_t)
@@ -150,12 +161,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate ops do
 LIBRARY = CudaLibrary("banded.cu", {
-    # q, nq, d, nd, starts, tq, w, ndim, r2, out, stream
-    "banded_count": (_P, _I, _P, _I, _P, _I, _I, _I, _F, _P, _P),
+    # q, nq, d, nd, starts, ends, tq, w, ndim, r2, split, out, stream
+    "banded_count": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P),
     # q, nq, d, nd, starts, tq, w, ndim, levels2, out, stream
     "banded_count3": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    # pts, n, radius2, labels, starts, tq, w, ndim, big, out, stream
-    "banded_min_label": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # pts, n, radius2, labels, starts, ends, tq, w, ndim, big, split, out,
+    # stream
+    "banded_min_label": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                         _P),
     # q, nq, d, nd, starts, tq, w, ndim, dist, idx, stream
     "banded_nearest": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
 }, extra_flags=("-fmad=false",))
@@ -171,7 +184,7 @@ def _check(name, tensors, dtypes, device):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _check_window(name, q_t8, n_d, starts, tq, w, ndim):
+def _check_window(name, q_t8, n_d, starts, tq, w, ndim, ends=None):
     n_q = q_t8.shape[1]
     if q_t8.dim() != 2 or q_t8.shape[0] != 8:
         raise ValueError(f"{name}: points must be (8, N), got {tuple(q_t8.shape)}")
@@ -185,6 +198,11 @@ def _check_window(name, q_t8, n_d, starts, tq, w, ndim):
     if q_t8.is_cuda and (tq % _CUDA_BLOCK or w % _CUDA_BLOCK):
         raise ValueError(f"{name}: the CUDA kernel needs tq ({tq}) and w "
                          f"({w}) in multiples of {_CUDA_BLOCK}")
+    if ends is not None:
+        _check(name, {"ends": ends}, (torch.int32,), q_t8.device)
+        if ends.shape != starts.shape:
+            raise ValueError(f"{name}: ends {tuple(ends.shape)} and starts "
+                             f"{tuple(starts.shape)} disagree")
 
 
 def _launch(name, fn, *args):
@@ -192,25 +210,63 @@ def _launch(name, fn, *args):
     LAUNCHES[name] += 1
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _span_split(device, n_q: int, w: int) -> int:
+    """gridDim.y of the count and min-label kernels: each query block's
+    span is cut into this many runs of whole chunks, merged with integer
+    atomics (order-free) into an output the launcher sets to 0 or big
+    first, so that a small cloud still fills the card."""
+    target = _BLOCKS_PER_SM * _sm_count(device)
+    n_blocks = n_q // _CUDA_BLOCK
+    return max(1, min(-(-target // n_blocks), w // _CUDA_BLOCK))
+
+
+def _check_copy16(name, n_d, tensors):
+    """The count and min-label kernels stage data rows by 16-byte copies:
+    4 points each, from 16-byte aligned rows."""
+    if n_d % 4:
+        raise ValueError(f"{name}: the CUDA kernel needs n_d ({n_d}) in "
+                         "multiples of 4")
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 def banded_tile_count(q_t8, d_t8, starts, r2: float, tq: int, w: int,
-                      ndim: int = 3) -> torch.Tensor:
+                      ndim: int = 3, ends=None) -> torch.Tensor:
     """Per query: data points of its block's window with squared distance
-    <= ``r2`` -> (Nq,) int32. Replaces ``pallas_kernels.banded_tile_count``."""
+    <= ``r2`` -> (Nq,) int32. Replaces ``pallas_kernels.banded_tile_count``.
+
+    ``ends`` (NB,) int32, where given, is each query block's true candidate
+    span end (``block_windows``): block b then scans exactly the data ranks
+    ``[s_b, min(ends[b], s_b + w))``, ``s_b`` the clamped start (the TPU
+    kernel rounds the span out to whole 2048-point tiles). On every valid
+    query lane the count is the whole window's: by the band guarantee a
+    point past the span lies beyond one cell, and every radius in use is
+    below it. On invalid lanes it may differ; every caller masks them.
+    ``ends=None`` scans the whole window (the full-width overflow pass)."""
     name = "banded_tile_count"
-    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim, ends)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
            (torch.float32, torch.float32, torch.int32), q_t8.device)
     if not q_t8.is_cuda:
-        return count_plain(q_t8, d_t8, starts, r2, tq, w, ndim)
-    out = torch.empty(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
+        return count_plain(q_t8, d_t8, starts, r2, tq, w, ndim, ends)
+    _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})
+    n_q = q_t8.shape[1]
+    out = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().banded_count, q_t8.data_ptr(),
-                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
-                starts.data_ptr(), tq, w, ndim, float(r2), out.data_ptr(),
+        _launch(name, LIBRARY.load().banded_count, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(),
+                0 if ends is None else ends.data_ptr(), tq, w, ndim,
+                float(r2), _span_split(q_t8.device, n_q, w), out.data_ptr(),
                 stream_of(q_t8.device))
     return out
 
@@ -239,13 +295,18 @@ def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
 
 
 def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
-                          ndim: int, big: int) -> torch.Tensor:
+                          ndim: int, big: int, ends=None) -> torch.Tensor:
     """Per query: the minimum label over window points within
     max(radius2_q, radius2_d), else ``big`` -> (N,) int32. Replaces
-    ``pallas_kernels.banded_tile_min_label``."""
+    ``pallas_kernels.banded_tile_min_label``.
+
+    ``ends`` as in :func:`banded_tile_count`: block b scans exactly
+    ``[s_b, min(ends[b], s_b + w))``; equal to the whole window's label on
+    every valid query lane (every radius is below the cell), possibly not
+    on invalid lanes, which every caller masks."""
     name = "banded_tile_min_label"
     n = pts_t8.shape[1]
-    _check_window(name, pts_t8, n, starts, tq, w, ndim)
+    _check_window(name, pts_t8, n, starts, tq, w, ndim, ends)
     _check(name, {"pts_t8": pts_t8, "radius2": radius2, "labels": labels,
                   "starts": starts},
            (torch.float32, torch.float32, torch.int32, torch.int32),
@@ -254,12 +315,16 @@ def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
         raise ValueError(f"{name}: radius2 and labels must be ({n},)")
     if not pts_t8.is_cuda:
         return min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim,
-                               big)
+                               big, ends)
+    _check_copy16(name, n, {"pts_t8": pts_t8, "radius2": radius2,
+                            "labels": labels})
     out = torch.empty(n, dtype=torch.int32, device=pts_t8.device)
     with torch.cuda.device(pts_t8.device):
         _launch(name, LIBRARY.load().banded_min_label, pts_t8.data_ptr(), n,
-                radius2.data_ptr(), labels.data_ptr(), starts.data_ptr(), tq,
-                w, ndim, int(big), out.data_ptr(), stream_of(pts_t8.device))
+                radius2.data_ptr(), labels.data_ptr(), starts.data_ptr(),
+                0 if ends is None else ends.data_ptr(), tq, w, ndim,
+                int(big), _span_split(pts_t8.device, n, w), out.data_ptr(),
+                stream_of(pts_t8.device))
     return out
 
 

@@ -59,12 +59,12 @@ def _radius_count_banded(query, query_mask, data, data_mask, radius,
     d_t8 = prep_t8(data[od, :3], data_mask[od], 1)
     tq = min(TQ, nq)
     w_band = band_width(nd, tile=TD)
-    starts, _, ovf = block_windows(cq, cd, tq, w_band)
+    starts, ends, ovf = block_windows(cq, cd, tq, w_band)
     w_full = full_width(nd)
     if w_full != w_band and bool(ovf):
-        starts, w_band = torch.zeros_like(starts), w_full
+        starts, ends, w_band = torch.zeros_like(starts), None, w_full
     c = banded_radius_count(q_t8, d_t8, starts, radius2_threshold(radius),
-                            tq, w_band)
+                            tq, w_band, ends=ends)
     out = torch.zeros(nq, dtype=torch.int32, device=query.device)
     out[oq] = c[:nq]
     return torch.clamp(torch.where(query_mask, out, 0), max=max_count)
