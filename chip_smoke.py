@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu) with nvcc for
    sm_90a, one nvcc each, started together (timed); ptxas's registers,
    spill stores and static shared memory per kernel of banded.cu and
-   vit.cu;
+   vit.cu; per banded kernel (1-4) and ndim, the SASS instructions of its
+   pair loop per (query, data point) pair (``cuobjdump -sass``);
 2. card against CPU, first half: the first 4 frames of the scene below
    through ground -> entropy -> clustering -> filter -> classification on
    the card, classified by a narrow bf16 tower on which the fused attention
@@ -25,7 +26,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``fused_attention_proj`` once per vision layer and classify call. Then
    the opt-in MLP kernels: one classify batch of this run through the tower
    with ``VILGOD_FUSED_MLP_BLOCK=1`` and with ``VILGOD_FUSED_MLP=1``; each
-   must launch. Then a geometry-only pass (no CLIP model): stages 1-4, their
+   must launch. Then the nine stages once more under ``torch.profiler``:
+   the card's busy share and the banded kernels' device time per launch.
+   Then a geometry-only pass (no CLIP model): stages 1-4, their
    checkpoint kept, and the nine stages resumed from it, scored with the
    port's ``evaluate_detections`` (LEVEL_2 APs, bench.py's range);
 3b. the dense configuration: the same scene and caps with an entropy radius
@@ -36,11 +39,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    24 times each;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
-   banded kernels also on a forced full-width (overflow) call each
-   (``banded_tile_count`` and ``banded_tile_min_label`` take each block's
-   span end on the main path and none at full width; their span call must
-   also equal the same call over the whole windows on every valid query
-   lane), the
+   banded kernels also on a forced full-width (overflow) call each, small
+   enough that the kernel splits each span over ``gridDim.y`` and merges
+   the splits with atomics (the banded kernels take each block's span end
+   on the main path and none at full width; their span call must also
+   equal the same call over the whole windows on every valid query lane,
+   for ``banded_tile_nearest`` on those whose nearest lies within the
+   0.5 m cell; each timed, too, with its spans cut into runs of 1-16
+   chunks and one run a span, outputs bitwise equal to its own), the
    dense kernels also on a ragged call (N not a multiple of 256) each
    (counts, labels and indices equal, squared distances bitwise equal);
    ``tile_min_label_qd``, which no path calls, on a 512-lane query block
@@ -151,15 +157,25 @@ class FirstFrames:
         return self.source.get_pose(fnr)
 
 
-# argument positions of each wrapper (as ops/banded.py calls them); kernels
-# 1 and 3 also take each block's span end
+# argument positions of each wrapper (as ops/banded.py calls them), each
+# block's span end included
 POS = {
     "banded_tile_count": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6, ends=7),
-    "banded_tile_count3": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6),
+    "banded_tile_count3": dict(q=0, d=1, starts=2, tq=4, w=5, ndim=6, ends=7),
     "banded_tile_min_label": dict(q=0, r2=1, lab=2, starts=3, tq=4, w=5,
                                   ndim=6, ends=8),
-    "banded_tile_nearest": dict(q=0, d=1, starts=2, tq=3, w=4, ndim=5),
+    "banded_tile_nearest": dict(q=0, d=1, starts=2, tq=3, w=4, ndim=5,
+                                ends=6),
 }
+# the banded kernels' template instances in banded.cu (kernels 1 and 2
+# share count_kernel<NDIM, NLEV>)
+SASS_KERNELS = {"banded_tile_count": ("count_kernel", 1),
+                "banded_tile_count3": ("count_kernel", 3),
+                "banded_tile_min_label": ("min_label_kernel", None),
+                "banded_tile_nearest": ("nearest_kernel", None)}
+# run lengths (256-rank chunks) the banded kernels are also timed at,
+# beside the wrapper's own (ops/kernels._RUN_CHUNKS) and one run a span
+RUN_CHOICES = (1, 2, 4, 8, 16)
 OUT_BYTES = {"banded_tile_count": 4, "banded_tile_count3": 12,
              "banded_tile_min_label": 4, "banded_tile_nearest": 8,
              "tile_radius_count": 4, "tile_radius_count3": 12,
@@ -171,24 +187,12 @@ class Recorder:
     """Keeps, per kernel wrapper, the arguments of its largest banded call
     (window narrower than the data) while ``active`` (positional, defaults
     applied), with the true end of each query block's candidate span (the
-    data-dependent work of the call): the call's own ``ends`` for kernels 1
-    and 3, else the one ``block_windows`` gave with the window starts."""
+    data-dependent work of the call), the call's own ``ends``."""
 
-    def __init__(self, kernels, window_modules):
-        self.active, self.calls, self.spans = False, {}, {}
+    def __init__(self, kernels):
+        self.active, self.calls = False, {}
         for name in kernels.KERNEL_NAMES:
             setattr(kernels, name, self._wrap(name, getattr(kernels, name)))
-        for mod in window_modules:
-            mod.block_windows = self._record_spans(mod.block_windows)
-
-    def _record_spans(self, fn):
-        def wrapper(*args, **kwargs):
-            starts, ends, ovf = fn(*args, **kwargs)
-            if self.active:
-                # keyed by identity; holding `starts` keeps its id unique
-                self.spans[id(starts)] = (starts, ends)
-            return starts, ends, ovf
-        return wrapper
 
     def _wrap(self, name, fn):
         pos, sig = POS[name], inspect.signature(fn)
@@ -202,13 +206,7 @@ class Recorder:
                 n_d = a[pos.get("d", pos["q"])].shape[1]
                 key = (w < n_d, q.shape[1] * w)
                 if name not in self.calls or key > self.calls[name][0]:
-                    if "ends" in pos:
-                        ends = a[pos["ends"]]
-                    else:
-                        starts = a[pos["starts"]]
-                        span = self.spans.get(id(starts))
-                        ends = span[1] if span and span[0] is starts else None
-                    self.calls[name] = (key, a, ends)
+                    self.calls[name] = (key, a, a[pos["ends"]])
             return fn(*args, **kwargs)
         wrapper.wrapped = fn
         return wrapper
@@ -229,7 +227,8 @@ def cuda_ms(fn, reps):
 def full_width_args(name, args, m):
     """The same pass over the first ``m`` sorted ranks at full width
     (starts 0, w = m, no span ends): the overflow re-run of the main
-    path."""
+    path, on few enough query blocks that the kernel splits each span over
+    gridDim.y."""
     import torch
     pos, a = POS[name], list(args)
     for k in ("q", "d"):
@@ -253,25 +252,27 @@ def without_ends(name, args):
     return tuple(a)
 
 
-def pairs_needed(args, pos, ends):
-    """(query, data point) pairs this call's data needs: per query block,
-    the window rows up to the block's true candidate end (points past it
-    lie beyond CELL and change no count, label or in-radius nearest);
-    the whole window where the span is unknown."""
-    n_q, tq, w = args[pos["q"]].shape[1], args[pos["tq"]], args[pos["w"]]
+def block_spans(args, pos, ends):
+    """Per query block, the data ranks its call scans: the window rows up
+    to the block's true candidate end (points past it lie beyond CELL and
+    change no count, label or in-radius nearest); the whole window where
+    the call has no span (an overflow re-run)."""
+    import torch
+    starts, w = args[pos["starts"]], args[pos["w"]]
     if ends is None:
-        return n_q * w
-    span = (ends - args[pos["starts"]]).clamp(0, w)
-    return int(span.sum()) * tq
+        return torch.full_like(starts, w)
+    return (ends - starts).clamp(0, w)
 
 
 def check_kernel(name, args, kernels, m, ends=None):
     """Kernel vs plain version on the main path's ``args`` and on a forced
-    full-width call over the first ``m`` ranks; for kernels 1 and 3 the
-    span call also against the same call over the whole windows, equal on
-    every valid query lane; times and bound. Returns the JSON row (launches
-    filled in by the caller)."""
+    full-width call over the first ``m`` ranks, which must split gridDim.y;
+    the span call also against the same call over the whole windows, equal
+    on every valid query lane (the nearest: on those whose whole-window
+    nearest lies within CELL); times and bound. Returns the JSON row
+    (launches filled in by the caller)."""
     import torch
+    from vilgod_tpu_torch.ops.banded import CELL
 
     kernel = getattr(kernels, name).wrapped
     plain = kernels.PLAIN[name]
@@ -295,21 +296,46 @@ def check_kernel(name, args, kernels, m, ends=None):
                                  .abs().max()))
         return err
 
-    err = max(compare(args), compare(full_width_args(name, args, m)))
     pos = POS[name]
-    if "ends" in pos and ends is not None:
-        valid = args[pos["q"]][0] < kernels.SENTINEL
-        whole = kernel(*without_ends(name, args))
-        if not torch.equal(kernel(*args)[valid], whole[valid]):
-            raise AssertionError(f"{name}: the span call differs from the "
-                                 "whole-window call on valid query lanes")
+    split, _ = kernels._span_split(m)
+    if split < 2:
+        raise AssertionError(f"{name}: the full-width check over {m} ranks "
+                             "does not split gridDim.y")
+    err = max(compare(args), compare(full_width_args(name, args, m)))
+    if ends is not None:
+        lanes = args[pos["q"]][0] < kernels.SENTINEL
+        whole = outs(kernel, without_ends(name, args))
+        if name == "banded_tile_nearest":
+            lanes &= whole[0] < CELL ** 2
+        for g, w_ in zip(outs(kernel, args), whole):
+            if not torch.equal(g[lanes], w_[lanes]):
+                raise AssertionError(f"{name}: the span call differs from "
+                                     "the whole-window call on valid query "
+                                     "lanes")
         del whole
     ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
+    # the same call with spans cut into runs of other lengths (whole: one
+    # run a span, no split), outputs held bitwise to the wrapper's own
+    base, run_ms, own = outs(kernel, args), {}, kernels._RUN_CHUNKS
+    w_chunks = args[pos["w"]] // 256
+    try:
+        for label, r in [(str(r), r) for r in RUN_CHOICES] + [
+                ("whole", w_chunks + 1)]:
+            kernels._RUN_CHUNKS = r
+            for g, b in zip(outs(kernel, args), base):
+                if not torch.equal(g.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"{name}: runs of {label} chunks "
+                                         "change the output")
+            run_ms[label] = cuda_ms(lambda: kernel(*args), 20)
+    finally:
+        kernels._RUN_CHUNKS = own
+    del base
 
     n_q, w, ndim = args[pos["q"]].shape[1], args[pos["w"]], args[pos["ndim"]]
     n_d = args[pos["d"]].shape[1] if "d" in pos else 0
-    pairs = pairs_needed(args, pos, ends)
+    spans = block_spans(args, pos, ends)
+    pairs = int(spans.sum()) * args[pos["tq"]]
     ops = pairs * (3 * ndim - 1 + EPILOGUE_OPS[name])
     in_bytes = (4 * ndim * (n_q + n_d) + 4 * args[pos["starts"]].numel()
                 + (8 * n_q if "r2" in pos else 0))
@@ -322,9 +348,15 @@ def check_kernel(name, args, kernels, m, ends=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "shape": {"n_q": n_q, "n_d": n_d or n_q, "w": w, "ndim": ndim,
-                      "pairs_scanned": (pairs if "ends" in pos
-                                        and ends is not None else n_q * w),
-                      "pairs_needed": pairs, "full_width_check_cols": m}}
+                      "pairs_scanned": pairs, "pairs_needed": pairs,
+                      "span_mean": float(spans.float().mean()),
+                      "span_max": int(spans.max()),
+                      "span_p99": float(torch.quantile(spans.float(), 0.99)),
+                      "empty_spans": int((spans == 0).sum()),
+                      "blocks": spans.numel(),
+                      "split_run": kernels._span_split(w),
+                      "run_ms": run_ms,
+                      "full_width_check": {"cols": m, "split": split}}}
 
 
 class DenseRecorder:
@@ -736,11 +768,19 @@ def profile_main_path(ds, cfg, clip_model):
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy_s = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:10]
+    # the banded kernels' device time per launch, by template instance
+    banded = {}
+    for e in events:
+        m = re.search(r"(count|min_label|nearest|fill)_kernel<[^>]*>", e.key)
+        if m:
+            banded[m.group(0)] = {"ms": dev_us(e) / 1e3, "calls": e.count,
+                                  "us_per_call": dev_us(e) / e.count}
     return {"wall_s": wall, "stage_s": zsd.stage_times,
             "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall if busy_s else None,
             "top": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
-                     "calls": e.count} for e in top]}
+                     "calls": e.count} for e in top],
+            "banded": banded}
 
 
 def print_ptxas(lib_path, per_kernel=False):
@@ -770,6 +810,59 @@ def print_ptxas(lib_path, per_kernel=False):
                     f"{reg.group(1) if reg else '?'} registers, "
                     f"{spill.group(1) if spill else '?'} bytes spill stores, "
                     f"{smem.group(1) if smem else 0} bytes static smem")
+
+
+def sass_per_pair(lib_path):
+    """Per banded kernel and ndim: the SASS instructions of the innermost
+    loop that does the pair arithmetic (``cuobjdump -sass`` of the built
+    library) over the pairs one trip of it serves. With -fmad=false each
+    pair squares ndim differences with one FMUL each, so the pairs a trip
+    serves are its FMULs over ndim; the loop is the innermost backward
+    branch range with the most FMULs. Returns {kernel: {ndim: {"instr",
+    "pairs", "per_pair", "fadd_per_pair"}}} (None where no loop parses)."""
+    from vilgod_tpu_torch.utils.cuda_build import _nvcc
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for section in text.split("Function : ")[1:]:
+        fn = re.match(r"\S*?\d\d?((?:[a-z]+\d?_)+kernel)I((?:Li\d+E)+)E",
+                      section)
+        if not fn:
+            continue
+        targs = [int(t) for t in re.findall(r"\d+", fn.group(2))]
+        ndim, nlev = targs[0], (targs[1] if len(targs) > 1 else None)
+        name = next((k for k, v in SASS_KERNELS.items()
+                     if v == (fn.group(1), nlev)), None)
+        if name is None:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", section)]
+        loops = []
+        for addr, op in ins:
+            br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if br and int(br.group(1), 16) < addr:
+                loops.append((int(br.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in loops)]
+        best = None
+        for lo, hi in inner:
+            body = [op for a, op in ins if lo <= a <= hi]
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+                   for op in body]
+            fmul = sum(o.split(".")[0] == "FMUL" for o in ops)
+            fadd = sum(o.split(".")[0] == "FADD" for o in ops)
+            if fmul and (best is None or fmul > best[1]):
+                best = (len(body), fmul, fadd)
+        row = None
+        if best:
+            pairs = best[1] / ndim
+            row = {"instr": best[0], "pairs": pairs,
+                   "per_pair": best[0] / pairs,
+                   "fadd_per_pair": best[2] / pairs}
+        out.setdefault(name, {})[ndim] = row
+    return out
 
 
 def check_first_frames(a, b, card_emb, cpu_emb, card_clip, cpu_clip):
@@ -894,8 +987,7 @@ def main() -> int:
     from vilgod_tpu_torch.data import SyntheticDataset
     from vilgod_tpu_torch.models import vit_kernels
     from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
-    from vilgod_tpu_torch.ops import (cluster, dense_kernels, entropy, kernels,
-                                      neighbors)
+    from vilgod_tpu_torch.ops import dense_kernels, kernels
     from vilgod_tpu_torch.pipeline.runner import (ZeroShotDetector,
                                                   run_sequences)
     from vilgod_tpu_torch.pipeline.state import (CLS_NONE, Capacity,
@@ -918,11 +1010,14 @@ def main() -> int:
         f"{', '.join(p.name for p in paths)}")
     for lib, path in zip(libraries, paths):
         print_ptxas(path, per_kernel=lib is not dense_kernels.LIBRARY)
+    for name, by_ndim in sass_per_pair(paths[0]).items():
+        log(f"sass {name} (instructions of the pair loop per pair, by "
+            f"ndim): " + json.dumps(by_ndim))
 
     cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
     ds = SyntheticDataset(**SCENE)
     first = FirstFrames(ds.sequence("synth_0"), CHECK_FRAMES)
-    recorder = Recorder(kernels, (cluster, entropy, neighbors))
+    recorder = Recorder(kernels)
     dense_rec = DenseRecorder(dense_kernels)
     vit_rec = VitRecorder(vit_kernels)
     n_frames = SCENE["n_frames"]
@@ -1088,7 +1183,8 @@ def main() -> int:
             if name not in recorder.calls:
                 raise AssertionError(f"{name}: no main-path call recorded")
             _, args, ends = recorder.calls[name]
-            cols = min(args[0].shape[1], 4 * 40960) // 2048 * 2048
+            # few enough query blocks that every kernel splits its spans
+            cols = min(args[0].shape[1], 65536) // 2048 * 2048
             row = check_kernel(name, args, kernels, cols, ends)
             row["launches"] = launches[name]
             rows.append(row)
@@ -1098,7 +1194,6 @@ def main() -> int:
         _, args, ends = recorder.calls["banded_tile_min_label"]
         qd_args, qd_ragged = min_label_qd_args(args, ends), min_label_qd_ragged(args)
         recorder.calls.clear()
-        recorder.spans.clear()
         for name in dense_kernels.KERNEL_NAMES:
             if name == "tile_min_label_qd":
                 row = check_dense_kernel(name, qd_args, dense_kernels,

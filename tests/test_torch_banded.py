@@ -211,7 +211,7 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
 
 
 # ---------------------------------------------------------------------------
-# the true span (``ends``) of the count and min-label passes
+# the true span (``ends``) of the four banded passes
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -235,16 +235,21 @@ def jax_banded_pallas(monkeypatch):
     jax.clear_caches()
 
 
+# each pass's query tile, and the empty span's result per lane
+TQ_OF = {"count": 1024, "count3": 512, "min_label": 512, "nearest": 1024}
+
+
 def _span_inputs(kernel, ndim, seed, invalid=300):
     """A sorted cloud, the pass's tq, its band windows (starts, ends) and,
     for the min-label pass, mixed radii and labels with 20 % at 2**30."""
-    # the count's threshold is nudged off the 5 mm lattice, the DBSCAN
-    # radii of the min-label pass are not: off-lattice points for those
-    pts, mask = _scene(seed, ndim=ndim, lattice=kernel == "count",
+    # the nudged count threshold and the nearest (no threshold) take the
+    # 5 mm lattice; the unnudged DBSCAN levels of count3 and the min-label
+    # pass take off-lattice points (see the module docstring)
+    pts, mask = _scene(seed, ndim=ndim, lattice=kernel in ("count", "nearest"),
                        invalid=invalid)
     t8, cid = _sorted(pts, mask)
     n = t8.shape[1]
-    tq = 1024 if kernel == "count" else 512
+    tq = TQ_OF[kernel]
     starts, ends, ovf = jb.block_windows(jnp.asarray(cid), jnp.asarray(cid),
                                          tq, 4096)
     assert not bool(ovf)
@@ -255,74 +260,107 @@ def _span_inputs(kernel, ndim, seed, invalid=300):
     return t8, tq, np.array(starts), np.array(ends), r2, labels
 
 
+def _outs(out):
+    """A pass's result as a tuple of numpy arrays (the nearest has two)."""
+    return tuple(o.numpy() if isinstance(o, torch.Tensor) else np.asarray(o)
+                 for o in (out if isinstance(out, tuple) else (out,)))
+
+
 def _port_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends=None):
     """The port's banded pass (plain versions on CPU tensors)."""
     ends = None if ends is None else torch.from_numpy(ends)
-    t = torch.from_numpy(t8)
+    t, st = torch.from_numpy(t8), torch.from_numpy(starts)
     if kernel == "count":
         from vilgod_tpu_torch.ops.neighbors import radius2_threshold
-        return tb.banded_radius_count(t, t, torch.from_numpy(starts),
-                                      radius2_threshold(0.3), tq, w,
-                                      ndim=ndim, ends=ends).numpy()
-    return tb.banded_min_label(t, torch.from_numpy(r2),
-                               torch.from_numpy(labels),
-                               torch.from_numpy(starts), tq, w, ndim, 2 ** 30,
-                               ends=ends).numpy()
+        out = tb.banded_radius_count(t, t, st, radius2_threshold(0.3), tq, w,
+                                     ndim=ndim, ends=ends)
+    elif kernel == "count3":
+        out = tb.banded_radius_count3(t, t, st, torch.from_numpy(_LEVELS2),
+                                      tq, w, ndim=ndim, ends=ends)
+    elif kernel == "nearest":
+        out = tb.banded_nearest(t, t, st, tq, w, ndim=ndim, ends=ends)
+    else:
+        out = tb.banded_min_label(t, torch.from_numpy(r2),
+                                  torch.from_numpy(labels), st, tq, w, ndim,
+                                  2 ** 30, ends=ends)
+    return _outs(out)
 
 
 def _jax_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends=None):
     """The JAX package's banded pass: the XLA fallback without ``ends``, or
     whatever ``_use_pallas`` picks."""
     ends = None if ends is None else jnp.asarray(ends)
+    t, st = jnp.asarray(t8), jnp.asarray(starts)
     if kernel == "count":
         from vilgod_tpu.ops.neighbors import radius2_threshold
-        out = jb.banded_radius_count(jnp.asarray(t8), jnp.asarray(t8),
-                                     jnp.asarray(starts),
-                                     radius2_threshold(0.3), tq, w,
+        out = jb.banded_radius_count(t, t, st, radius2_threshold(0.3), tq, w,
                                      ndim=ndim, ends=ends)
+    elif kernel == "count3":
+        out = jb.banded_radius_count3(t, t, st, jnp.asarray(_LEVELS2), tq, w,
+                                      ndim=ndim, ends=ends)
+    elif kernel == "nearest":
+        out = jb.banded_nearest(t, t, st, tq, w, ndim=ndim, ends=ends)
     else:
-        out = jb.banded_min_label(jnp.asarray(t8), jnp.asarray(r2),
-                                  jnp.asarray(labels.astype(np.float32)),
-                                  jnp.asarray(starts), tq, w, ndim, 2 ** 30,
-                                  ends=ends)
-    return np.asarray(out).astype(np.int32)
+        out = jb.banded_min_label(t, jnp.asarray(r2),
+                                  jnp.asarray(labels.astype(np.float32)), st,
+                                  tq, w, ndim, 2 ** 30, ends=ends)
+        out = np.asarray(out).astype(np.int32)
+    return _outs(out)
+
+
+def _assert_lanes_equal(want, got, lanes):
+    for wa, ga in zip(want, got):
+        if ga.dtype == np.float32:      # squared distances: bitwise
+            wa, ga = wa.view(np.uint32), ga.view(np.uint32)
+        np.testing.assert_array_equal(wa[lanes], ga[lanes])
 
 
 @pytest.mark.parametrize("kernel,ndim", [("count", 3), ("count", 6),
-                                         ("min_label", 5)])
+                                         ("count3", 6), ("min_label", 5),
+                                         ("nearest", 4)])
 def test_span_equals_jax(kernel, ndim, jax_banded_pallas):
     """The port's span pass equals, on every valid query lane, the JAX XLA
     fallback over the whole band and the JAX Pallas kernel (interpreted)
-    over its tile-rounded spans."""
+    over its tile-rounded spans. The nearest, on the valid lanes whose
+    whole-band nearest lies within the cell: beyond it the span's nearest
+    may differ by design (vilgod_tpu/ops/banded.py:303-308)."""
     t8, tq, starts, ends, r2, labels = _span_inputs(kernel, ndim, seed=11)
     valid = t8[0] < tk.SENTINEL
     w = 4096
     # the spans skip most of the band
     assert (ends - starts).sum() < 0.75 * starts.size * w
     got = _port_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends)
-    pallas = _jax_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends)
-    np.testing.assert_array_equal(pallas[valid], got[valid])
     jb_use = jb._use_pallas
     jb._use_pallas = lambda: False
     try:
         xla = _jax_pass(kernel, t8, tq, starts, w, ndim, r2, labels)
     finally:
         jb._use_pallas = jb_use
-    np.testing.assert_array_equal(xla[valid], got[valid])
-    if kernel == "count":
-        assert got.max() > 10
-    else:
-        assert (got[valid] < labels[valid]).any()
+    lanes = valid
+    if kernel == "nearest":
+        lanes = valid & (xla[0] < np.float32(tb.CELL ** 2))
+        assert lanes.sum() > 0.9 * valid.sum()
+    pallas = _jax_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends)
+    _assert_lanes_equal(pallas, got, lanes)
+    _assert_lanes_equal(xla, got, lanes)
+    if kernel in ("count", "count3"):
+        assert got[0].max() > 10
+    elif kernel == "min_label":
+        assert (got[0][valid] < labels[valid]).any()
 
 
 def _span_oracle(kernel, t8, tq, starts, ends, w, ndim, r2, labels, big):
     """numpy: block b scans exactly [s_b, min(ends[b], s_b + w)), s_b
-    clamped into [0, n - w], squared distances rounded step by step."""
+    clamped into [0, n - w], squared distances rounded step by step; the
+    nearest takes the first minimum, (inf, 0) on an empty span."""
     n = t8.shape[1]
-    out = np.zeros(n, np.int32) if kernel == "count" else np.full(n, big,
-                                                                  np.int32)
     from vilgod_tpu_torch.ops.neighbors import radius2_threshold
     thr = np.float32(radius2_threshold(0.3))
+    out = {"count": (np.zeros(n, np.int32),),
+           "count3": (np.zeros((n, 3), np.int32),),
+           "min_label": (np.full(n, big, np.int32),),
+           "nearest": (np.full(n, np.inf, np.float32),
+                       np.zeros(n, np.int32))}[kernel]
     for b, (s, e) in enumerate(zip(starts, ends)):
         s = min(max(int(s), 0), n - w)
         e = max(s, min(int(e), s + w))
@@ -334,23 +372,32 @@ def _span_oracle(kernel, t8, tq, starts, ends, w, ndim, r2, labels, big):
         if e == s:
             continue
         if kernel == "count":
-            out[qs] = (acc <= thr).sum(axis=1)
+            out[0][qs] = (acc <= thr).sum(axis=1)
+        elif kernel == "count3":
+            out[0][qs] = (acc[..., None] <= _LEVELS2).sum(axis=1)
+        elif kernel == "nearest":
+            out[0][qs] = acc.min(axis=1)
+            out[1][qs] = s + acc.argmin(axis=1)
         else:
             hit = acc <= np.maximum(r2[qs, None], r2[None, s:e])
-            out[qs] = np.where(hit, labels[None, s:e], big).min(axis=1)
+            out[0][qs] = np.where(hit, labels[None, s:e], big).min(axis=1)
     return out
 
 
 @pytest.mark.parametrize("spans", ["block_windows", "arbitrary"])
-@pytest.mark.parametrize("kernel,ndim", [("count", 3), ("min_label", 5)])
+@pytest.mark.parametrize("kernel,ndim", [("count", 3), ("count3", 6),
+                                         ("min_label", 5), ("nearest", 4)])
 def test_span_oracle_all_lanes(kernel, ndim, spans):
     """The span contract on every lane, invalid ones included: an
-    all-invalid block (empty span) gives 0 / big, a span ending inside a
-    256-point chunk is cut exactly there."""
+    all-invalid block (empty span) gives 0 / big / (inf, 0), a span ending
+    inside a 256-point chunk is cut exactly there."""
     # 1500 invalid points: the last query block holds no valid point
     t8, tq, starts, ends, r2, labels = _span_inputs(kernel, ndim, seed=12,
                                                     invalid=1500)
     w, big = 4096, 2 ** 30
+    if kernel == "nearest":
+        # duplicate points: ties must go to the lowest rank
+        t8[:, 1:200:2] = t8[:, 0:199:2]
     if spans == "arbitrary":
         # every block but the all-invalid last one
         rng = np.random.default_rng(13)
@@ -364,9 +411,11 @@ def test_span_oracle_all_lanes(kernel, ndim, spans):
     got = _port_pass(kernel, t8, tq, starts, w, ndim, r2, labels, ends)
     want = _span_oracle(kernel, t8, tq, starts, ends, w, ndim, r2, labels,
                         big)
-    np.testing.assert_array_equal(want, got)
-    blk = got.reshape(-1, tq)
-    assert (blk[empty] == (0 if kernel == "count" else big)).all()
+    _assert_lanes_equal(want, got, slice(None))
+    empty_value = {"count": (0,), "count3": (0,), "min_label": (big,),
+                   "nearest": (np.inf, 0)}[kernel]
+    for g, v in zip(got, empty_value):
+        assert (g.reshape(starts.size, tq, -1)[empty] == v).all()
 
 
 def test_span_none_is_the_whole_window():
@@ -395,27 +444,70 @@ def test_wrappers_check_ends():
     with pytest.raises(ValueError):
         tk.banded_tile_min_label(q, r2, lab, starts[:2].contiguous(), 2048,
                                  4096, 3, 2 ** 30, ends=starts)
+    with pytest.raises(TypeError):
+        tk.banded_tile_nearest(q, q, starts, 1024, 4096, ends=starts.float())
+    with pytest.raises(ValueError):
+        tk.banded_tile_count3(q, q, starts, torch.zeros(3), 1024, 4096,
+                              ends=starts[:3].contiguous())
+
+
+def _record_calls(monkeypatch):
+    """Patch the four wrappers to record (name, w, ends) per call."""
+    import inspect
+    calls = []
+    for name in tk.KERNEL_NAMES:
+        fn = getattr(tk, name)
+
+        def record(*args, _fn=fn, _name=name, _sig=inspect.signature(fn),
+                   **kwargs):
+            a = _sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            calls.append((_name, a.arguments["w"], a.arguments["ends"]))
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(tk, name, record)
+    return calls
+
+
+def _paged_transfer(layout, rng):
+    """Two pages of 4096 queries and 16384 data points (3-D) for
+    knn_labels_paged, whose band is 8192 ranks, its middle tier 16384 and
+    its full width 32768. ``spread``: every block fits the band; ``strip``:
+    the data in a 1.5 m strip, so a block's span holds most of its page
+    (the middle tier); ``unbalanced``: that strip with 24576 of the points
+    in page 0 (full width). Each query lies near a data point of its
+    page."""
+    nq, nd = 4096, 16384
+    d = rng.uniform(-30, 30, (2 * nd, 3)).astype(np.float32)
+    if layout != "spread":
+        d[:, 0] = rng.uniform(0.1, 1.6, 2 * nd)
+    dp = np.repeat(np.arange(2, dtype=np.int32), nd)
+    if layout == "unbalanced":
+        dp[:24576], dp[24576:] = 0, 1
+    qp = np.repeat(np.arange(2, dtype=np.int32), nq)
+    near = np.concatenate([rng.choice(np.flatnonzero(dp == p), nq)
+                           for p in range(2)])
+    q = (d[near] + rng.normal(0, 0.05, (2 * nq, 3))).astype(np.float32)
+    return (q, np.ones(2 * nq, bool), qp, d, np.ones(2 * nd, bool), dp, 2,
+            rng.integers(-1, 40, 2 * nd).astype(np.int32),
+            rng.uniform(0, 1, 2 * nd).astype(np.float32))
 
 
 @pytest.mark.parametrize("forced_overflow", [False, True],
                          ids=["banded", "overflow"])
 def test_call_sites_pass_ends(forced_overflow, monkeypatch):
     """Every caller the JAX package runs with ``ends`` passes it: the radius
-    count, the entropy pair counts and the DBSCAN min-label rounds; on a
-    window overflow the full-width re-run takes none. The overflow is
-    forced with a 512-rank band: narrower than every query block (1024 and
-    512 queries), whose span holds at least its own valid points."""
+    count, the entropy pair counts, the DBSCAN core counts, min-label
+    rounds and border attach, and the label transfers; on a window
+    overflow the full-width re-run takes none (``knn_labels`` then takes
+    the dense knn, as in JAX). The overflow is forced with a 512-rank band:
+    narrower than every query block (1024 and 512 queries), whose span
+    holds at least its own valid points; for ``knn_labels_paged``, whose
+    band is its pages' capacity, by one page holding most of the points."""
     from vilgod_tpu_torch.ops import cluster as tc
     from vilgod_tpu_torch.ops import entropy as te
     from vilgod_tpu_torch.ops import neighbors as tn
 
-    calls = []
-    for name in ("banded_tile_count", "banded_tile_min_label"):
-        def record(*args, _fn=getattr(tk, name), _name=name, **kwargs):
-            calls.append((_name, args[7 if _name == "banded_tile_count"
-                                     else 8]))
-            return _fn(*args, **kwargs)
-        monkeypatch.setattr(tk, name, record)
+    calls = _record_calls(monkeypatch)
     if forced_overflow:
         for mod in (tn, te, tc):
             monkeypatch.setattr(mod, "band_width", lambda n, tile=2048: 512)
@@ -427,11 +519,44 @@ def test_call_sites_pass_ends(forced_overflow, monkeypatch):
                         torch.ones(2, dtype=torch.bool), window=2,
                         skip_frames=0)
     tc.dbscan_labels(torch.from_numpy(pts), m)
+    lab = torch.arange(8192, dtype=torch.int32)
+    tn.knn_labels(xyz, m, xyz.flip(0).contiguous(), m, lab)
+    paged = _paged_transfer("unbalanced" if forced_overflow else "spread",
+                            np.random.default_rng(9))
+    tn.knn_labels_paged(*(torch.from_numpy(a) if isinstance(a, np.ndarray)
+                          else a for a in paged))
     names = [c[0] for c in calls]
-    # one radius count, 2 x 2 entropy pairs, at least one min-label round
+    # one radius count, 2 x 2 entropy pairs, one DBSCAN core count, at
+    # least one min-label round, one border attach, the label transfers
     assert names.count("banded_tile_count") == 5
+    assert names.count("banded_tile_count3") == 1
     assert "banded_tile_min_label" in names
+    assert names.count("banded_tile_nearest") == (2 if forced_overflow else 3)
     if forced_overflow:
-        assert all(ends is None for _, ends in calls)
+        assert all(ends is None for _, _, ends in calls)
     else:
-        assert all(ends is not None for _, ends in calls)
+        assert all(ends is not None for _, _, ends in calls)
+
+
+@pytest.mark.parametrize("layout,w", [("spread", 8192), ("strip", 16384),
+                                      ("unbalanced", 32768)])
+def test_knn_labels_paged_tiers(layout, w, monkeypatch):
+    """``knn_labels_paged``'s three tiers: the band and the 2x middle tier
+    pass their own spans' ends, the full-width pass none; the labels and
+    probabilities equal the JAX package's."""
+    from vilgod_tpu.ops import neighbors as jn
+    from vilgod_tpu_torch.ops import neighbors as tn
+
+    calls = _record_calls(monkeypatch)
+    args = _paged_transfer(layout, np.random.default_rng(10))
+    lt, pt = tn.knn_labels_paged(*(torch.from_numpy(a)
+                                   if isinstance(a, np.ndarray) else a
+                                   for a in args))
+    assert [(c[0], c[1]) for c in calls] == [("banded_tile_nearest", w)]
+    ends = calls[0][2]
+    assert (ends is None) == (w == 32768)
+    lj, pj = jn.knn_labels_paged(*(jnp.asarray(a) if isinstance(a, np.ndarray)
+                                   else a for a in args))
+    np.testing.assert_array_equal(np.asarray(lj), lt.numpy())
+    np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
+    assert (lt.numpy() >= 0).mean() > 0.5

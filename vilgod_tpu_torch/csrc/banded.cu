@@ -18,42 +18,51 @@
 //
 // What bounds them on the H100. Every query meets every point of its span:
 // per (query, data point) pair 3 flops per coordinate less one, plus an
-// epilogue (the compare; for the min-label pass also the max of the two
-// radii and the label min), no reuse beyond the window, and the (8, N)
-// inputs are a few MB. So they are bound by FP32 operations: the needed
-// pairs x (3 ndim - 1 + epilogue) over 67 TFLOP/s. That peak counts an FMA
-// as two operations; with -fmad=false no FMA pairs a product with a sum,
-// so the FP32 pipes issue at most half of it, and every load, integer or
-// branch instruction takes an issue slot from them.
+// epilogue (the compares; for the min-label pass also the max of the two
+// radii and the label min; for the nearest the strict less-than and its
+// select), no reuse beyond the window, and the (8, N) inputs are a few MB.
+// So they are bound by FP32 operations: the needed pairs x (3 ndim - 1 +
+// epilogue) over 67 TFLOP/s. That peak counts an FMA as two operations;
+// with -fmad=false no FMA pairs a product with a sum, so the FP32 pipes
+// issue at most half of it, and every load, integer or branch instruction
+// takes an issue slot from them.
 //
-// count_kernel and min_label_kernel (kernels 1 and 3) are built for that:
+// All four kernels are built for that:
 //  - The span. Where the wrapper passes ends (the JAX package's Pallas
 //    kernels take the same per-block span, pallas_kernels.py:278-296),
 //    block b scans exactly [s, min(ends[b], s + w)) and nothing past it;
 //    without ends, [s, s + w). Chunks of 256 data ranks start at s rounded
 //    down to 4 (16-byte copies); the ranks outside the span in a boundary
 //    group of 4 get a NaN first coordinate in shared memory, so every
-//    compare with them is false, and the compute loop stops at the last
-//    group of 4 that meets the span. An empty span writes 0 / big.
+//    compare with them is false (a NaN distance is never below the best
+//    nearest one either), and the compute loop stops at the last group of
+//    4 that meets the span. An empty span writes 0 / big / (inf, 0).
 //  - Register tiling. A block holds 256 queries, kQpt = 2 per thread at
 //    stride 128 (coalesced loads and stores); each group of 4 data points
 //    comes from shared memory as one 16-byte broadcast load per coordinate
 //    row (and per radius and label row) and serves 4 x 2 pairs, so loads
 //    are 1 / 4 instructions per pair, not ndim. Four queries per thread
-//    needed nearly twice the registers and was slower on both kernels.
-//  - Overlapped staging. Two shared-memory stages: chunk k + 1 arrives by
-//    cp.async (16 bytes per thread per row) while chunk k is computed.
-//    Per block (ndim [+ 2]) x 256 x 4 bytes x 2 stages: 6 KB for the 3-D
-//    count, 16 KB for the 6-D min-label pass, so a dozen blocks fit an SM.
-//  - Enough blocks. Each block's span is cut into gridDim.y runs of whole
-//    chunks (the wrapper picks gridDim.y so the grid has ~4 blocks per SM:
-//    4 for the 40960-query entropy counts, 1 for the 983040-query paged
-//    min-label pass), merged with integer atomicAdd / atomicMin into an
-//    output set to 0 / big first (by fill_kernel, on the same stream):
-//    order-free, so no result depends on the split.
-// count3_kernel and nearest_kernel (kernels 2 and 4) keep the first
-// design: one thread per query, the whole window [s, s + w) staged 256
-// points at a time by plain loads.
+//    needed nearly twice the registers and was slower on kernels 1 and 3.
+//  - Overlapped staging (scan_span). Two shared-memory stages: chunk k + 1
+//    arrives by cp.async (16 bytes per thread per row) while chunk k is
+//    computed. Per block (ndim [+ 2]) x 256 x 4 bytes x 2 stages: 6 KB for
+//    the 3-D count, 16 KB for the 6-D min-label pass, so a dozen blocks fit
+//    an SM.
+//  - Enough blocks, and no long tail. Each block's span is cut into runs
+//    of `run` whole chunks (2 from the wrapper), one per gridDim.y index,
+//    so that the few long spans of a skewed cloud (a 2x-band nearest
+//    call: half its query blocks empty, its longest spans 112 chunks)
+//    spread over many SMs instead of setting the kernel's tail, and a
+//    grid of few query blocks (the 40960-query entropy counts) still
+//    fills the card. The runs merge into an output set first (by a fill
+//    kernel, on the same stream): integer atomicAdd into 0 for the
+//    counts, atomicMin into big for the labels,
+//    and for the nearest a 64-bit atomicMin on (bits(dist2) << 32) | rank
+//    into (bits(inf) << 32) | 0, unpacked into (dist2, rank) afterwards.
+//    dist2 >= 0, so its bits order as its value does, and the lower rank
+//    wins a tie across runs as the strict < over ascending ranks does
+//    inside one: every merge is order-free, so no result depends on the
+//    split. A block whose run is empty returns at once.
 //
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -61,9 +70,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 256;            // queries per block
+constexpr int kQpt = 2;                // queries per thread
+constexpr int kThreads = kBlock / kQpt;
+constexpr int kChunk = 256;            // data ranks per shared-memory stage
+constexpr int kGroups = kChunk / 4;    // 16-byte groups per row of a stage
 
 template <int NDIM>
 __device__ __forceinline__ void load_query(const float* __restrict__ q,
@@ -71,41 +86,6 @@ __device__ __forceinline__ void load_query(const float* __restrict__ q,
 #pragma unroll
   for (int c = 0; c < NDIM; ++c) qv[c] = q[(size_t)c * nq + qi];
 }
-
-// Stage data points [j0, j0 + kBlock) into sd (NDIM rows of kBlock).
-template <int NDIM>
-__device__ __forceinline__ void stage(const float* __restrict__ d, int nd,
-                                      int j0, float* sd) {
-#pragma unroll
-  for (int c = 0; c < NDIM; ++c)
-    sd[c * kBlock + threadIdx.x] = d[(size_t)c * nd + j0 + threadIdx.x];
-}
-
-template <int NDIM>
-__device__ __forceinline__ float dist2(const float (&qv)[NDIM],
-                                       const float* sd, int t) {
-  float diff = __fsub_rn(qv[0], sd[t]);
-  float acc = __fmul_rn(diff, diff);
-#pragma unroll
-  for (int c = 1; c < NDIM; ++c) {
-    diff = __fsub_rn(qv[c], sd[c * kBlock + t]);
-    acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-  }
-  return acc;
-}
-
-__device__ __forceinline__ int window_start(const int* __restrict__ starts,
-                                            int tq, int nd, int w) {
-  int s = starts[(blockIdx.x * kBlock) / tq];
-  return max(0, min(s, nd - w));
-}
-
-// ---- kernels 1 and 3: span, register tiling, cp.async double buffer ----
-
-constexpr int kQpt = 2;                // queries per thread
-constexpr int kThreads = kBlock / kQpt;
-constexpr int kChunk = 256;            // data ranks per shared-memory stage
-constexpr int kGroups = kChunk / 4;    // 16-byte groups per row of a stage
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -130,14 +110,15 @@ __device__ __forceinline__ int lane(const int4& v) {
 }
 
 // This block's data ranks: the span [lo, hi) of its query block, chunks of
-// kChunk from base = lo rounded down to 4, and this split's chunks [c0, c1).
+// kChunk from base = lo rounded down to 4, and this split's chunks [c0, c1):
+// run y of the span's runs of max(ceil(chunks / gridDim.y), run) chunks.
 struct Span {
   int lo, hi, base, c0, c1;
 };
 
 __device__ __forceinline__ Span block_span(const int* __restrict__ starts,
                                            const int* __restrict__ ends,
-                                           int tq, int nd, int w) {
+                                           int tq, int nd, int w, int run) {
   Span sp;
   const int b = (blockIdx.x * kBlock) / tq;
   sp.lo = max(0, min(starts[b], nd - w));
@@ -146,7 +127,8 @@ __device__ __forceinline__ Span block_span(const int* __restrict__ starts,
   sp.base = sp.lo & ~3;
   const int n_chunks =
       sp.hi > sp.lo ? (sp.hi - sp.base + kChunk - 1) / kChunk : 0;
-  const int per = (n_chunks + gridDim.y - 1) / gridDim.y;
+  const int splits = gridDim.y;
+  const int per = max((n_chunks + splits - 1) / splits, run);
   sp.c0 = min(n_chunks, (int)blockIdx.y * per);
   sp.c1 = min(n_chunks, sp.c0 + per);
   return sp;
@@ -191,9 +173,34 @@ __device__ __forceinline__ void mask_chunk(const Span& sp, int c, float* buf) {
   }
 }
 
-// groups of 4 of chunk c that meet the span
-__device__ __forceinline__ int chunk_groups(const Span& sp, int c) {
-  return min(kGroups, (sp.hi - (sp.base + c * kChunk) + 3) >> 2);
+// The span loop: chunk k + 1 is staged by cp.async while chunk k is
+// computed; body(cur, ng, r0) serves the ng groups of 4 of a chunk that
+// meet the span, r0 the chunk's first global rank.
+template <int NDIM, int ROWS, class Body>
+__device__ __forceinline__ void scan_span(const float* __restrict__ d,
+                                          int nd, const float* radius2,
+                                          const int* labels, const Span& sp,
+                                          float (*buf)[ROWS * kChunk],
+                                          Body&& body) {
+  const int n = sp.c1 - sp.c0;
+  if (n > 0) {
+    stage_async<NDIM, ROWS>(d, nd, radius2, labels, sp, sp.c0, buf[0]);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    const int c = sp.c0 + k;
+    if (k + 1 < n)
+      stage_async<NDIM, ROWS>(d, nd, radius2, labels, sp, c + 1,
+                              buf[(k + 1) & 1]);
+    cp_async_commit();
+    cp_async_wait_prev();
+    float* cur = buf[k & 1];
+    mask_chunk(sp, c, cur);
+    __syncthreads();
+    const int r0 = sp.base + c * kChunk;
+    body(cur, min(kGroups, (sp.hi - r0 + 3) >> 2), r0);
+    __syncthreads();  // before chunk k + 2 lands in this stage
+  }
 }
 
 // (q - d)^2 over rows 0..NDIM-1 in order, each step rounded on its own,
@@ -219,88 +226,62 @@ __device__ __forceinline__ void load_group(const float* buf, int g,
   for (int c = 0; c < NDIM; ++c) dv[c] = b4[c * kGroups + g];
 }
 
-template <int NDIM>
+// counts at NLEV squared radii (kernel 1: one, r2; kernel 2: three, from
+// levels2 on the card), out (nq, NLEV) row-major
+template <int NLEV, int NDIM, int J>
+__device__ __forceinline__ void count_lane(const float* qv,
+                                           const float4 (&dv)[NDIM],
+                                           const float (&lv)[NLEV],
+                                           int (&cnt)[NLEV]) {
+  const float dd = dist2_lane<NDIM, J>(qv, dv);
+#pragma unroll
+  for (int l = 0; l < NLEV; ++l) cnt[l] += dd <= lv[l];
+}
+
+template <int NDIM, int NLEV>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
              int nd, const int* __restrict__ starts,
-             const int* __restrict__ ends, int tq, int w, float r2,
-             int* __restrict__ out) {
+             const int* __restrict__ ends, int tq, int w, int run, float r2,
+             const float* __restrict__ levels2, int* __restrict__ out) {
   __shared__ __align__(16) float buf[2][NDIM * kChunk];
-  const Span sp = block_span(starts, ends, tq, nd, w);
+  const Span sp = block_span(starts, ends, tq, nd, w, run);
+  if (gridDim.y > 1 && sp.c0 == sp.c1) return;  // nothing to merge
   const int q0 = blockIdx.x * kBlock + threadIdx.x;
+  float lv[NLEV];
+#pragma unroll
+  for (int l = 0; l < NLEV; ++l) lv[l] = NLEV == 1 ? r2 : levels2[l];
   float qv[kQpt][NDIM];
+  int cnt[kQpt][NLEV] = {};
 #pragma unroll
   for (int i = 0; i < kQpt; ++i)
     load_query<NDIM>(q, nq, q0 + i * kThreads, qv[i]);
-  int cnt[kQpt] = {};
-  const int n = sp.c1 - sp.c0;
-  if (n > 0) {
-    stage_async<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, sp.c0,
-                                      buf[0]);
-    cp_async_commit();
-  }
-  for (int k = 0; k < n; ++k) {
-    const int c = sp.c0 + k;
-    if (k + 1 < n)
-      stage_async<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, c + 1,
-                                        buf[(k + 1) & 1]);
-    cp_async_commit();
-    cp_async_wait_prev();
-    float* cur = buf[k & 1];
-    mask_chunk(sp, c, cur);
-    __syncthreads();
-    const int ng = chunk_groups(sp, c);
+  scan_span<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, buf,
+                        [&](const float* cur, int ng, int) {
 #pragma unroll 2
     for (int g = 0; g < ng; ++g) {
       float4 dv[NDIM];
       load_group<NDIM>(cur, g, dv);
 #pragma unroll
       for (int i = 0; i < kQpt; ++i) {
-        cnt[i] += dist2_lane<NDIM, 0>(qv[i], dv) <= r2;
-        cnt[i] += dist2_lane<NDIM, 1>(qv[i], dv) <= r2;
-        cnt[i] += dist2_lane<NDIM, 2>(qv[i], dv) <= r2;
-        cnt[i] += dist2_lane<NDIM, 3>(qv[i], dv) <= r2;
+        count_lane<NLEV, NDIM, 0>(qv[i], dv, lv, cnt[i]);
+        count_lane<NLEV, NDIM, 1>(qv[i], dv, lv, cnt[i]);
+        count_lane<NLEV, NDIM, 2>(qv[i], dv, lv, cnt[i]);
+        count_lane<NLEV, NDIM, 3>(qv[i], dv, lv, cnt[i]);
       }
     }
-    __syncthreads();  // before chunk k + 2 lands in this stage
-  }
+  });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
-    int* o = out + q0 + i * kThreads;
-    if (gridDim.y == 1)
-      *o = cnt[i];
-    else if (cnt[i])
-      atomicAdd(o, cnt[i]);
-  }
-}
-
-template <int NDIM>
-__global__ void __launch_bounds__(kBlock)
-count3_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
-              int nd, const int* __restrict__ starts, int tq, int w,
-              const float* __restrict__ levels2, int* __restrict__ out) {
-  __shared__ float sd[NDIM * kBlock];
-  const int qi = blockIdx.x * kBlock + threadIdx.x;
-  const int s = window_start(starts, tq, nd, w);
-  const float l0 = levels2[0], l1 = levels2[1], l2 = levels2[2];
-  float qv[NDIM];
-  load_query<NDIM>(q, nq, qi, qv);
-  int c0 = 0, c1 = 0, c2 = 0;
-  for (int k = 0; k < w; k += kBlock) {
-    stage<NDIM>(d, nd, s + k, sd);
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kBlock; ++t) {
-      const float dd = dist2<NDIM>(qv, sd, t);
-      c0 += dd <= l0;
-      c1 += dd <= l1;
-      c2 += dd <= l2;
+    int* o = out + (size_t)NLEV * (q0 + i * kThreads);
+#pragma unroll
+    for (int l = 0; l < NLEV; ++l) {
+      if (gridDim.y == 1)
+        o[l] = cnt[i][l];
+      else if (cnt[i][l])
+        atomicAdd(o + l, cnt[i][l]);
     }
-    __syncthreads();
   }
-  out[3 * (size_t)qi + 0] = c0;
-  out[3 * (size_t)qi + 1] = c1;
-  out[3 * (size_t)qi + 2] = c2;
 }
 
 template <int NDIM>
@@ -309,10 +290,11 @@ min_label_kernel(const float* __restrict__ pts, int n,
                  const float* __restrict__ radius2,
                  const int* __restrict__ labels,
                  const int* __restrict__ starts, const int* __restrict__ ends,
-                 int tq, int w, int big, int* __restrict__ out) {
+                 int tq, int w, int run, int big, int* __restrict__ out) {
   constexpr int kRows = NDIM + 2;  // coordinates, radius2, labels
   __shared__ __align__(16) float buf[2][kRows * kChunk];
-  const Span sp = block_span(starts, ends, tq, n, w);
+  const Span sp = block_span(starts, ends, tq, n, w, run);
+  if (gridDim.y > 1 && sp.c0 == sp.c1) return;  // nothing to merge
   const int q0 = blockIdx.x * kBlock + threadIdx.x;
   float qv[kQpt][NDIM], qr2[kQpt];
   int best[kQpt];
@@ -322,23 +304,8 @@ min_label_kernel(const float* __restrict__ pts, int n,
     qr2[i] = radius2[q0 + i * kThreads];
     best[i] = big;
   }
-  const int nc = sp.c1 - sp.c0;
-  if (nc > 0) {
-    stage_async<NDIM, kRows>(pts, n, radius2, labels, sp, sp.c0,
-                                       buf[0]);
-    cp_async_commit();
-  }
-  for (int k = 0; k < nc; ++k) {
-    const int c = sp.c0 + k;
-    if (k + 1 < nc)
-      stage_async<NDIM, kRows>(pts, n, radius2, labels, sp, c + 1,
-                                         buf[(k + 1) & 1]);
-    cp_async_commit();
-    cp_async_wait_prev();
-    float* cur = buf[k & 1];
-    mask_chunk(sp, c, cur);
-    __syncthreads();
-    const int ng = chunk_groups(sp, c);
+  scan_span<NDIM, kRows>(pts, n, radius2, labels, sp, buf,
+                         [&](const float* cur, int ng, int) {
     const float4* r4 = reinterpret_cast<const float4*>(cur + NDIM * kChunk);
     const int4* l4 = reinterpret_cast<const int4*>(cur + (NDIM + 1) * kChunk);
 #pragma unroll 2
@@ -360,8 +327,7 @@ min_label_kernel(const float* __restrict__ pts, int n,
           best[i] = min(best[i], lane<3>(dl));
       }
     }
-    __syncthreads();  // before chunk k + 2 lands in this stage
-  }
+  });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
     int* o = out + q0 + i * kThreads;
@@ -372,109 +338,169 @@ min_label_kernel(const float* __restrict__ pts, int n,
   }
 }
 
-template <int NDIM>
-__global__ void __launch_bounds__(kBlock)
-nearest_kernel(const float* __restrict__ q, int nq,
-               const float* __restrict__ d, int nd,
-               const int* __restrict__ starts, int tq, int w,
-               float* __restrict__ dist, int* __restrict__ idx) {
-  __shared__ float sd[NDIM * kBlock];
-  const int qi = blockIdx.x * kBlock + threadIdx.x;
-  const int s = window_start(starts, tq, nd, w);
-  float qv[NDIM];
-  load_query<NDIM>(q, nq, qi, qv);
-  float best = INFINITY;
-  int bi = 0;
-  for (int k = 0; k < w; k += kBlock) {
-    stage<NDIM>(d, nd, s + k, sd);
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kBlock; ++t) {
-      const float dd = dist2<NDIM>(qv, sd, t);
-      // strict < over ascending ranks keeps the FIRST minimum (argmin)
-      if (dd < best) {
-        best = dd;
-        bi = s + k + t;
-      }
-    }
-    __syncthreads();
+// strict < over ascending ranks keeps the FIRST minimum (argmin); a NaN
+// distance (a masked rank) never wins
+template <int NDIM, int J>
+__device__ __forceinline__ void nearest_lane(const float* qv,
+                                             const float4 (&dv)[NDIM],
+                                             int rank, float& best, int& bi) {
+  const float dd = dist2_lane<NDIM, J>(qv, dv);
+  if (dd < best) {
+    best = dd;
+    bi = rank + J;
   }
-  dist[qi] = best;
-  idx[qi] = bi;
 }
 
-__global__ void fill_kernel(int* __restrict__ out, int n, int value) {
+__device__ __forceinline__ unsigned long long nearest_key(float dist2,
+                                                          int rank) {
+  return ((unsigned long long)__float_as_uint(dist2) << 32) |
+         (unsigned)rank;
+}
+
+template <int NDIM>
+__global__ void __launch_bounds__(kThreads)
+nearest_kernel(const float* __restrict__ q, int nq,
+               const float* __restrict__ d, int nd,
+               const int* __restrict__ starts, const int* __restrict__ ends,
+               int tq, int w, int run, float* __restrict__ dist,
+               int* __restrict__ idx, unsigned long long* __restrict__ keys) {
+  __shared__ __align__(16) float buf[2][NDIM * kChunk];
+  const Span sp = block_span(starts, ends, tq, nd, w, run);
+  if (gridDim.y > 1 && sp.c0 == sp.c1) return;  // nothing to merge
+  const int q0 = blockIdx.x * kBlock + threadIdx.x;
+  float qv[kQpt][NDIM], best[kQpt];
+  int bi[kQpt];
+#pragma unroll
+  for (int i = 0; i < kQpt; ++i) {
+    load_query<NDIM>(q, nq, q0 + i * kThreads, qv[i]);
+    best[i] = INFINITY;
+    bi[i] = 0;
+  }
+  scan_span<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, buf,
+                        [&](const float* cur, int ng, int r0) {
+#pragma unroll 2
+    for (int g = 0; g < ng; ++g) {
+      float4 dv[NDIM];
+      load_group<NDIM>(cur, g, dv);
+      const int rank = r0 + 4 * g;
+#pragma unroll
+      for (int i = 0; i < kQpt; ++i) {
+        nearest_lane<NDIM, 0>(qv[i], dv, rank, best[i], bi[i]);
+        nearest_lane<NDIM, 1>(qv[i], dv, rank, best[i], bi[i]);
+        nearest_lane<NDIM, 2>(qv[i], dv, rank, best[i], bi[i]);
+        nearest_lane<NDIM, 3>(qv[i], dv, rank, best[i], bi[i]);
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < kQpt; ++i) {
+    const int qi = q0 + i * kThreads;
+    if (gridDim.y == 1) {
+      dist[qi] = best[i];
+      idx[qi] = bi[i];
+    } else if (best[i] < INFINITY) {
+      atomicMin(keys + qi, nearest_key(best[i], bi[i]));
+    }
+  }
+}
+
+template <class T>
+__global__ void fill_kernel(T* __restrict__ out, int n, T value) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = value;
 }
 
-// the splits of kernels 1 and 3 merge into out, set to value first
-void fill(int* out, int n, int value, cudaStream_t st) {
+// the splits merge into out, set to value first
+template <class T>
+void fill(T* out, int n, T value, cudaStream_t st) {
   fill_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, st>>>(out, n, value);
 }
 
-inline dim3 grid_for(int nq) { return dim3(nq / kBlock); }
-
-}  // namespace
-
-#define DISPATCH_NDIM(ndim, KERNEL, ...)                                   \
-  switch (ndim) {                                                          \
-    case 3: KERNEL<3><<<grid_for(nq), kBlock, 0, st>>>(__VA_ARGS__); break; \
-    case 4: KERNEL<4><<<grid_for(nq), kBlock, 0, st>>>(__VA_ARGS__); break; \
-    case 5: KERNEL<5><<<grid_for(nq), kBlock, 0, st>>>(__VA_ARGS__); break; \
-    case 6: KERNEL<6><<<grid_for(nq), kBlock, 0, st>>>(__VA_ARGS__); break; \
-    default: return (int)cudaErrorInvalidValue;                            \
+__global__ void nearest_unpack_kernel(
+    const unsigned long long* __restrict__ keys, int n,
+    float* __restrict__ dist, int* __restrict__ idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const unsigned long long key = keys[i];
+    dist[i] = __uint_as_float((unsigned)(key >> 32));
+    idx[i] = (int)(unsigned)key;
   }
+}
 
-extern "C" {
-
-// kernels 1 and 3: kThreads threads a block, gridDim.y = split
-#define DISPATCH_SPAN(ndim, KERNEL, ...)                                   \
-  switch (ndim) {                                                          \
-    case 3: KERNEL<3><<<grid, kThreads, 0, st>>>(__VA_ARGS__); break;      \
-    case 4: KERNEL<4><<<grid, kThreads, 0, st>>>(__VA_ARGS__); break;      \
-    case 5: KERNEL<5><<<grid, kThreads, 0, st>>>(__VA_ARGS__); break;      \
-    case 6: KERNEL<6><<<grid, kThreads, 0, st>>>(__VA_ARGS__); break;      \
-    default: return (int)cudaErrorInvalidValue;                            \
+// launch(std::integral_constant<int, NDIM>) for ndim 3 to 6, then the
+// launch's error
+template <class Launch>
+int dispatch_ndim(int ndim, Launch&& launch) {
+  switch (ndim) {
+    case 3: launch(std::integral_constant<int, 3>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    case 5: launch(std::integral_constant<int, 5>()); break;
+    case 6: launch(std::integral_constant<int, 6>()); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-
-int banded_count(const float* q, int nq, const float* d, int nd,
-                 const int* starts, const int* ends, int tq, int w, int ndim,
-                 float r2, int split, int* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nq / kBlock, split);
-  if (split > 1) fill(out, nq, 0, st);
-  DISPATCH_SPAN(ndim, count_kernel, q, nq, d, nd, starts, ends, tq, w,
-                r2, out);
   return (int)cudaGetLastError();
 }
 
-int banded_count3(const float* q, int nq, const float* d, int nd,
-                  const int* starts, int tq, int w, int ndim,
-                  const float* levels2, int* out, void* stream) {
+}  // namespace
+
+// kThreads threads a block; gridDim.y = split (1: each block writes its
+// queries' results itself), each split at least run chunks of a span
+extern "C" {
+
+int banded_count(const float* q, int nq, const float* d, int nd,
+                 const int* starts, const int* ends, int tq, int w, int ndim,
+                 float r2, int split, int run, int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DISPATCH_NDIM(ndim, count3_kernel, q, nq, d, nd, starts, tq, w, levels2,
-                out);
-  return (int)cudaGetLastError();
+  const dim3 grid(nq / kBlock, split);
+  if (split > 1) fill(out, nq, 0, st);
+  return dispatch_ndim(ndim, [&](auto nd_) {
+    count_kernel<decltype(nd_)::value, 1><<<grid, kThreads, 0, st>>>(
+        q, nq, d, nd, starts, ends, tq, w, run, r2, nullptr, out);
+  });
+}
+
+int banded_count3(const float* q, int nq, const float* d, int nd,
+                  const int* starts, const int* ends, int tq, int w, int ndim,
+                  const float* levels2, int split, int run, int* out,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nq / kBlock, split);
+  if (split > 1) fill(out, 3 * nq, 0, st);
+  return dispatch_ndim(ndim, [&](auto nd_) {
+    count_kernel<decltype(nd_)::value, 3><<<grid, kThreads, 0, st>>>(
+        q, nq, d, nd, starts, ends, tq, w, run, 0.0f, levels2, out);
+  });
 }
 
 int banded_min_label(const float* pts, int n, const float* radius2,
                      const int* labels, const int* starts, const int* ends,
-                     int tq, int w, int ndim, int big, int split, int* out,
-                     void* stream) {
+                     int tq, int w, int ndim, int big, int split, int run,
+                     int* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n / kBlock, split);
   if (split > 1) fill(out, n, big, st);
-  DISPATCH_SPAN(ndim, min_label_kernel, pts, n, radius2, labels, starts,
-                ends, tq, w, big, out);
-  return (int)cudaGetLastError();
+  return dispatch_ndim(ndim, [&](auto nd_) {
+    min_label_kernel<decltype(nd_)::value><<<grid, kThreads, 0, st>>>(
+        pts, n, radius2, labels, starts, ends, tq, w, run, big, out);
+  });
 }
 
+// keys (nq,) 64-bit scratch, used only when split > 1
 int banded_nearest(const float* q, int nq, const float* d, int nd,
-                   const int* starts, int tq, int w, int ndim, float* dist,
-                   int* idx, void* stream) {
+                   const int* starts, const int* ends, int tq, int w,
+                   int ndim, int split, int run, float* dist, int* idx,
+                   unsigned long long* keys, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DISPATCH_NDIM(ndim, nearest_kernel, q, nq, d, nd, starts, tq, w, dist, idx);
+  const dim3 grid(nq / kBlock, split);
+  // nearest_key(inf, 0): no candidate yet
+  if (split > 1) fill(keys, nq, 0x7f800000ULL << 32, st);
+  const int err = dispatch_ndim(ndim, [&](auto nd_) {
+    nearest_kernel<decltype(nd_)::value><<<grid, kThreads, 0, st>>>(
+        q, nq, d, nd, starts, ends, tq, w, run, dist, idx, keys);
+  });
+  if (err != 0 || split == 1) return err;
+  nearest_unpack_kernel<<<(nq + kBlock - 1) / kBlock, kBlock, 0, st>>>(
+      keys, nq, dist, idx);
   return (int)cudaGetLastError();
 }
 

@@ -10,15 +10,16 @@ caller re-runs the SAME pass at full width (``starts = 0``,
 ``w = w_full``): identical arithmetic, exhaustive window.
 
 The four banded ops below hand the window math to the CUDA kernels of
-:mod:`.kernels` (plain PyTorch versions on CPU tensors). Both scan exactly
-``[start, start + w)`` with ``start`` clamped into ``[0, n_d - w]`` as
-``jax.lax.dynamic_slice`` does in the JAX package's XLA fallback, so the
-results equal that fallback everywhere, padded and invalid rows included.
-The radius count and the min-label pass also take ``ends``, each block's
-true span end from :func:`block_windows`, as the JAX package's Pallas
-kernels do; they then scan only ``[start, min(end, start + w))``, which
-gives the same results on every valid query row (see
-:func:`.kernels.banded_tile_count`).
+:mod:`.kernels` (plain PyTorch versions on CPU tensors). Without ``ends``
+they scan exactly ``[start, start + w)`` with ``start`` clamped into
+``[0, n_d - w]`` as ``jax.lax.dynamic_slice`` does in the JAX package's
+XLA fallback, so the results equal that fallback everywhere, padded and
+invalid rows included. With ``ends``, each block's true span end from
+:func:`block_windows` (the JAX package's Pallas kernels take the same),
+they scan only ``[start, min(end, start + w))``, which gives the same
+results on every valid query row (the nearest: wherever it lies within a
+cell; see :func:`.kernels.banded_tile_count` and
+:func:`.kernels.banded_tile_nearest`).
 """
 from __future__ import annotations
 
@@ -135,9 +136,10 @@ def banded_radius_count(q_t8, d_t8, starts, r2: float, tq: int, w_band: int,
 
 
 def banded_radius_count3(q_t8, d_t8, starts, levels2: torch.Tensor, tq: int,
-                         w_band: int, ndim: int = 3) -> torch.Tensor:
+                         w_band: int, ndim: int = 3,
+                         ends=None) -> torch.Tensor:
     return kernels.banded_tile_count3(q_t8, d_t8, starts, levels2, tq,
-                                      w_band, ndim)
+                                      w_band, ndim, ends)
 
 
 def banded_min_label(pts_t8, radius2_row, labels_row, starts, tq: int,
@@ -155,11 +157,13 @@ def banded_min_label(pts_t8, radius2_row, labels_row, starts, tq: int,
                                          starts, tq, w_band, ndim, big, ends)
 
 
-def banded_nearest(q_t8, d_t8, starts, tq: int, w_band: int, ndim: int = 3):
+def banded_nearest(q_t8, d_t8, starts, tq: int, w_band: int, ndim: int = 3,
+                   ends=None):
     """Nearest data point per query within the band -> (dist2, global
     data rank). Exact for every consumer that thresholds the result at a
     radius < CELL."""
     assert d_t8.shape[1] < 2 ** 24, (
         f"banded_nearest: {d_t8.shape[1]} data points exceeds the float32 "
         "index-lane exactness limit (2**24); split into more pages")
-    return kernels.banded_tile_nearest(q_t8, d_t8, starts, tq, w_band, ndim)
+    return kernels.banded_tile_nearest(q_t8, d_t8, starts, tq, w_band, ndim,
+                                       ends)

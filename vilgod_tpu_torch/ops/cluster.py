@@ -180,9 +180,9 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
         return starts, w_band, ends
 
     pts_t8 = prep_t8(points, mask, 1)
-    s_h, w_h, _ = window(cid_sorted, cid_sorted, tq_h)
+    s_h, w_h, e_h = window(cid_sorted, cid_sorted, tq_h)
     counts3 = banded_radius_count3(pts_t8, pts_t8, s_h, levels * levels,
-                                   tq_h, w_h, ndim=ndim)[:n]
+                                   tq_h, w_h, ndim=ndim, ends=e_h)[:n]
     radius, core = _core_radii(counts3, mask, levels, levels[2], min_samples)
     radius2 = radius * radius
     big = n
@@ -229,11 +229,11 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     # compacted data both have to fit the band.
     s_l, _, ovf_l = block_windows(cid_sorted, cid_sorted, tq_l, w_band,
                                   invalid_cid=invalid_cid)
-    s_n, w_n, _ = window(cid_sorted, cid_c, tq_l)
+    s_n, w_n, e_n = window(cid_sorted, cid_c, tq_l)
     if w_n != w_full and bool(ovf_l):
-        s_n, w_n = torch.zeros_like(s_n), w_full
+        s_n, w_n, e_n = torch.zeros_like(s_n), w_full, None
     nearest_d2, nc = banded_nearest(pts_t8, core_t8, s_n, tq_l, w_n,
-                                    ndim=ndim)
+                                    ndim=ndim, ends=e_n)
     nearest_d2 = nearest_d2[:n]
     nearest_core = core_src[torch.clamp(nc[:n], max=n - 1).long()]
 

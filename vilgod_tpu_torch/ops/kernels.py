@@ -7,12 +7,12 @@ rows, ``(8, N)`` float32 with x, y, z[, f3, f4, f5] in the leading rows
 and zeros below; invalid points sit at a far ``SENTINEL`` coordinate so
 no radius reaches them. Each query block of ``tq`` sorted points scans
 the data window ``[start, start + w)`` (``start`` clamped into
-``[0, n_d - w]``), or, where the count and min-label passes are given
-``ends``, only the block's true candidate span ``[start, min(end, start +
-w))``. Squared distances are in difference form, ``(q - d)**2`` summed
-over rows 0..ndim-1 in order, each product and sum rounded on its own (no
-FMA), so kernel and plain version agree bit for bit and sit on the same
-side of every threshold.
+``[0, n_d - w]``), or, where a pass is given ``ends``, only the block's
+true candidate span ``[start, min(end, start + w))``. Squared distances
+are in difference form, ``(q - d)**2`` summed over rows 0..ndim-1 in
+order, each product and sum rounded on its own (no FMA), so kernel and
+plain version agree bit for bit and sit on the same side of every
+threshold.
 
 Each wrapper takes its plain version only for CPU tensors. For CUDA
 tensors it launches its kernel from ``csrc/banded.cu`` (built by
@@ -22,7 +22,6 @@ falls back. ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -40,9 +39,9 @@ SENTINEL = 1.0e6
 # one CUDA thread block holds this many queries and stages this many data
 # points per shared-memory chunk; tq and every window width are multiples
 _CUDA_BLOCK = 256
-# the count and min-label kernels split each block's span over gridDim.y
-# until the grid has about this many blocks per SM
-_BLOCKS_PER_SM = 4
+# the kernels cut each block's span into runs of this many 256-rank
+# chunks, one run per gridDim.y index
+_RUN_CHUNKS = 2
 
 KERNEL_NAMES = ("banded_tile_count", "banded_tile_count3",
                 "banded_tile_min_label", "banded_tile_nearest")
@@ -115,10 +114,10 @@ def count_plain(q_t8, d_t8, starts, r2, tq, w, ndim, ends=None):
     return out
 
 
-def count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim):
+def count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim, ends=None):
     out = torch.zeros((q_t8.shape[1], 3), dtype=torch.int32,
                       device=q_t8.device)
-    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+    for qs, _, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim, ends):
         for lv in range(3):
             out[qs, lv] += (dist2 <= levels2[lv]).sum(dim=1, dtype=torch.int32)
     return out
@@ -138,12 +137,12 @@ def min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim, big,
     return out
 
 
-def nearest_plain(q_t8, d_t8, starts, tq, w, ndim):
+def nearest_plain(q_t8, d_t8, starts, tq, w, ndim, ends=None):
     n_q = q_t8.shape[1]
     dist = torch.full((n_q,), float("inf"), dtype=torch.float32,
                       device=q_t8.device)
     idx = torch.zeros(n_q, dtype=torch.int32, device=q_t8.device)
-    for qs, k, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim):
+    for qs, k, _, dist2 in _tiles(q_t8, d_t8, starts, tq, w, ndim, ends):
         # min over a dim returns the FIRST minimum, and a later tile only
         # wins when strictly nearer: the lowest rank wins ties (argmin)
         best, arg = dist2.min(dim=1)
@@ -161,16 +160,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate ops do
 LIBRARY = CudaLibrary("banded.cu", {
-    # q, nq, d, nd, starts, ends, tq, w, ndim, r2, split, out, stream
-    "banded_count": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P, _P),
-    # q, nq, d, nd, starts, tq, w, ndim, levels2, out, stream
-    "banded_count3": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    # pts, n, radius2, labels, starts, ends, tq, w, ndim, big, split, out,
+    # q, nq, d, nd, starts, ends, tq, w, ndim, r2, split, run, out, stream
+    "banded_count": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _I, _I, _P,
+                     _P),
+    # q, nq, d, nd, starts, ends, tq, w, ndim, levels2, split, run, out,
     # stream
-    "banded_min_label": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                         _P),
-    # q, nq, d, nd, starts, tq, w, ndim, dist, idx, stream
-    "banded_nearest": (_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    "banded_count3": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I, _P,
+                      _P),
+    # pts, n, radius2, labels, starts, ends, tq, w, ndim, big, split, run,
+    # out, stream
+    "banded_min_label": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P),
+    # q, nq, d, nd, starts, ends, tq, w, ndim, split, run, dist, idx, keys,
+    # stream
+    "banded_nearest": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P),
 }, extra_flags=("-fmad=false",))
 
 
@@ -210,24 +214,19 @@ def _launch(name, fn, *args):
     LAUNCHES[name] += 1
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _span_split(device, n_q: int, w: int) -> int:
-    """gridDim.y of the count and min-label kernels: each query block's
-    span is cut into this many runs of whole chunks, merged with integer
-    atomics (order-free) into an output the launcher sets to 0 or big
-    first, so that a small cloud still fills the card."""
-    target = _BLOCKS_PER_SM * _sm_count(device)
-    n_blocks = n_q // _CUDA_BLOCK
-    return max(1, min(-(-target // n_blocks), w // _CUDA_BLOCK))
+def _span_split(w: int) -> tuple[int, int]:
+    """(gridDim.y, run) of the banded kernels: block (b, y) scans the y-th
+    run of ``max(ceil(chunks / gridDim.y), run)`` 256-rank chunks of query
+    block b's span, and the runs merge with atomics (order-free) into an
+    output the launcher sets first. Runs of _RUN_CHUNKS chunks keep the
+    few long spans of a skewed cloud from setting the grid's tail, and
+    give a grid of few query blocks enough blocks to fill the card."""
+    return -(-(w // _CUDA_BLOCK) // _RUN_CHUNKS), _RUN_CHUNKS
 
 
 def _check_copy16(name, n_d, tensors):
-    """The count and min-label kernels stage data rows by 16-byte copies:
-    4 points each, from 16-byte aligned rows."""
+    """The banded kernels stage data rows by 16-byte copies: 4 points
+    each, from 16-byte aligned rows."""
     if n_d % 4:
         raise ValueError(f"{name}: the CUDA kernel needs n_d ({n_d}) in "
                          "multiples of 4")
@@ -266,17 +265,19 @@ def banded_tile_count(q_t8, d_t8, starts, r2: float, tq: int, w: int,
         _launch(name, LIBRARY.load().banded_count, q_t8.data_ptr(), n_q,
                 d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(),
                 0 if ends is None else ends.data_ptr(), tq, w, ndim,
-                float(r2), _span_split(q_t8.device, n_q, w), out.data_ptr(),
+                float(r2), *_span_split(w), out.data_ptr(),
                 stream_of(q_t8.device))
     return out
 
 
 def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
-                       ndim: int = 3) -> torch.Tensor:
+                       ndim: int = 3, ends=None) -> torch.Tensor:
     """Counts at three squared radii ``levels2`` (3,) f32 -> (Nq, 3) int32.
-    Replaces ``pallas_kernels.banded_tile_count3``."""
+    Replaces ``pallas_kernels.banded_tile_count3``. ``ends`` as in
+    :func:`banded_tile_count`: equal to the whole window's counts on every
+    valid query lane (every level is below the cell)."""
     name = "banded_tile_count3"
-    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim, ends)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts,
                   "levels2": levels2},
            (torch.float32, torch.float32, torch.int32, torch.float32),
@@ -284,12 +285,15 @@ def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
     if levels2.shape != (3,):
         raise ValueError(f"{name}: levels2 must be (3,), got {tuple(levels2.shape)}")
     if not q_t8.is_cuda:
-        return count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim)
-    out = torch.empty((q_t8.shape[1], 3), dtype=torch.int32, device=q_t8.device)
+        return count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim, ends)
+    _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})
+    n_q = q_t8.shape[1]
+    out = torch.empty((n_q, 3), dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().banded_count3, q_t8.data_ptr(),
-                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1],
-                starts.data_ptr(), tq, w, ndim, levels2.data_ptr(),
+        _launch(name, LIBRARY.load().banded_count3, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(),
+                0 if ends is None else ends.data_ptr(), tq, w, ndim,
+                levels2.data_ptr(), *_span_split(w),
                 out.data_ptr(), stream_of(q_t8.device))
     return out
 
@@ -323,28 +327,44 @@ def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
         _launch(name, LIBRARY.load().banded_min_label, pts_t8.data_ptr(), n,
                 radius2.data_ptr(), labels.data_ptr(), starts.data_ptr(),
                 0 if ends is None else ends.data_ptr(), tq, w, ndim,
-                int(big), _span_split(pts_t8.device, n, w), out.data_ptr(),
+                int(big), *_span_split(w), out.data_ptr(),
                 stream_of(pts_t8.device))
     return out
 
 
-def banded_tile_nearest(q_t8, d_t8, starts, tq: int, w: int, ndim: int = 3):
+def banded_tile_nearest(q_t8, d_t8, starts, tq: int, w: int, ndim: int = 3,
+                        ends=None):
     """Per query: the nearest window point -> (dist2 (Nq,) f32, global data
-    rank (Nq,) int32); the lowest rank wins ties. Replaces
-    ``pallas_kernels.banded_tile_nearest``."""
+    rank (Nq,) int32); the lowest rank wins ties; (inf, 0) where the
+    window is empty. Replaces ``pallas_kernels.banded_tile_nearest``.
+
+    ``ends`` as in :func:`banded_tile_count`: block b scans exactly
+    ``[s_b, min(ends[b], s_b + w))``. On every valid query lane whose
+    nearest window point lies within one cell the result is the whole
+    window's (a point past the span lies beyond the cell); beyond the cell
+    it may differ, as the JAX package's does, and every caller thresholds
+    it at a radius below the cell."""
     name = "banded_tile_nearest"
-    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim)
+    _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim, ends)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
            (torch.float32, torch.float32, torch.int32), q_t8.device)
     if not q_t8.is_cuda:
-        return nearest_plain(q_t8, d_t8, starts, tq, w, ndim)
+        return nearest_plain(q_t8, d_t8, starts, tq, w, ndim, ends)
+    _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})
     n_q = q_t8.shape[1]
+    split, run = _span_split(w)
     dist = torch.empty(n_q, dtype=torch.float32, device=q_t8.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
+    # the splits' 64-bit (bits(dist2) << 32 | rank) keys
+    keys = (torch.empty(n_q, dtype=torch.int64, device=q_t8.device)
+            if split > 1 else None)
     with torch.cuda.device(q_t8.device):
         _launch(name, LIBRARY.load().banded_nearest, q_t8.data_ptr(), n_q,
-                d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(), tq, w,
-                ndim, dist.data_ptr(), idx.data_ptr(), stream_of(q_t8.device))
+                d_t8.data_ptr(), d_t8.shape[1], starts.data_ptr(),
+                0 if ends is None else ends.data_ptr(), tq, w, ndim, split,
+                run, dist.data_ptr(), idx.data_ptr(),
+                0 if keys is None else keys.data_ptr(),
+                stream_of(q_t8.device))
     return dist, idx
 
 

@@ -171,13 +171,13 @@ def knn_labels(query, query_mask, data, data_mask, labels,
     d_t8 = prep_t8(data[od, :3], data_mask[od], 1)
     tq = min(TQ, nq)
     w_band = band_width(nd, tile=TD)
-    starts, _, ovf = block_windows(cq, cd, tq, w_band)
+    starts, ends, ovf = block_windows(cq, cd, tq, w_band)
     if bool(ovf):
         # a window wider than the band: the dense knn over the original
         # orders, as the JAX package does (a band as wide as the data
         # never overflows)
         return dense()
-    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band)
+    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band, ends=ends)
     bd, bi = bd[:nq], torch.clamp(bi[:nq], max=nd - 1)
     # query rank -> original query row, data rank -> original data row
     d2 = torch.zeros(nq, dtype=torch.float32, device=query.device)
@@ -250,22 +250,23 @@ def knn_labels_paged(query, query_mask, q_pages, data, data_mask, d_pages,
     w_full = full_width(nd)
     w_band = min(w_band, w_full)
     cq_sorted = cq[oq]
-    starts, _, ovf = block_windows(cq_sorted, cd_sorted, tq, w_band,
-                                   invalid_cid=invalid)
+    starts, ends, ovf = block_windows(cq_sorted, cd_sorted, tq, w_band,
+                                      invalid_cid=invalid)
     w2 = min(2 * w_band, w_full)
     if w_full != w_band and bool(ovf):
         if w2 == w_full:
-            starts, w_band = torch.zeros_like(starts), w_full
+            starts, w_band, ends = torch.zeros_like(starts), w_full, None
         else:
             # middle tier at 2x band before the quadratic full pass: one
             # locally dense cell row must not make every page pay O(nq*nd)
-            starts2, _, ovf2 = block_windows(cq_sorted, cd_sorted, tq, w2,
-                                             invalid_cid=invalid)
+            starts2, ends2, ovf2 = block_windows(cq_sorted, cd_sorted, tq, w2,
+                                                 invalid_cid=invalid)
             if bool(ovf2):
-                starts, w_band = torch.zeros_like(starts), w_full
+                starts, w_band, ends = torch.zeros_like(starts), w_full, None
             else:
-                starts, w_band = starts2, w2
-    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band, ndim=4)
+                starts, w_band, ends = starts2, w2, ends2
+    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band, ndim=4,
+                            ends=ends)
     bd, bi = bd[:nq], torch.clamp(bi[:nq], max=nd - 1)
     d2 = torch.full((nq,), float("inf"), dtype=torch.float32,
                     device=query.device)

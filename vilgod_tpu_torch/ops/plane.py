@@ -41,6 +41,24 @@ def point_plane_distance(points, plane) -> torch.Tensor:
     return torch.abs(_dot3(points[:, :3], plane[:3]) + plane[3])
 
 
+def top3_first(scores: torch.Tensor) -> torch.Tensor:
+    """The indices of the three largest float32 ``scores`` of each row ->
+    (rows, 3) int64, largest first, the lower index first among equal
+    values (``jax.lax.top_k``'s order, -inf ties included).
+
+    Each score becomes an order-preserving int32 key (its bits, the low 31
+    flipped for negatives), packed over ``n - 1 - index`` into a unique
+    int64, so the result depends on no library's tie rule. +0.0 and -0.0
+    would get different keys; the RANSAC logits are +0.0 or -inf, so their
+    sums with a draw are never -0.0."""
+    n = scores.shape[-1]
+    bits = scores.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    rev = torch.arange(n - 1, -1, -1, dtype=torch.int64, device=scores.device)
+    top = torch.topk((key << 32) | rev, 3, dim=-1).values
+    return (n - 1) - (top & 0xFFFFFFFF)
+
+
 def ransac_plane(points, mask, key: tuple[int, int], threshold: float = 0.1,
                  iters: int = 100):
     """One RANSAC stage: (plane (4,), inlier mask (N,)). Index triples are
@@ -50,8 +68,7 @@ def ransac_plane(points, mask, key: tuple[int, int], threshold: float = 0.1,
     n = points.shape[0]
     gumbel = jrandom.gumbel(key, (iters, n), device=points.device)
     logits = torch.where(mask, 0.0, float("-inf"))
-    # sorted like jax.lax.top_k: the largest first
-    triples = torch.topk(logits[None, :] + gumbel, 3, dim=1).indices
+    triples = top3_first(logits[None, :] + gumbel)
     p = points[triples]                                   # (iters, 3, 3)
     planes = plane_from_triplet(p[:, 0], p[:, 1], p[:, 2])
     dists = torch.abs(_dot3(points[None, :, :3], planes[:, None, :3])
