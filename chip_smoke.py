@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: the card's name and power limit; build the CUDA sources of
    vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu) with nvcc for
    sm_90a, one nvcc each, started together (timed); ptxas's registers,
-   spill stores and static shared memory per kernel of banded.cu and
-   vit.cu; per banded kernel (1-4) and ndim, the SASS instructions of its
-   pair loop per (query, data point) pair (``cuobjdump -sass``);
+   spill stores and static shared memory per kernel of each source; per
+   pair-loop kernel (banded 1-4, dense 6 and 8) and ndim, the SASS
+   instructions of its pair loop per (query, data point) pair
+   (``cuobjdump -sass``);
 2. card against CPU, first half: the first 4 frames of the scene below
    through ground -> entropy -> clustering -> filter -> classification on
    the card, classified by a narrow bf16 tower on which the fused attention
@@ -49,6 +50,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    chunks and one run a span, outputs bitwise equal to its own), the
    dense kernels also on a ragged call (N not a multiple of 256) each
    (counts, labels and indices equal, squared distances bitwise equal);
+   kernels 6 and 8 (the box pre-pass) also on a call of 1001 x 1499
+   lanes, a constructed call whose tiles are skipped and taken whole, and
+   the captured call with its data lanes shuffled (no tile decided; timed
+   as ``pairs_ms``, the pair loop's own rate); on each of these calls the
+   kernel's own decision per tile equals the torch mirror's, whose tiles
+   skipped, taken whole and left to the pair loop, the pairs in those
+   (``needed_pairs``) and the bound over them (``bound_needed_ms``) the
+   row reports;
    ``tile_min_label_qd``, which no path calls, on a 512-lane query block
    of the main path's largest ``banded_tile_min_label`` call against that
    block's window, and on a ragged 1000 x 1500 call (labels equal); the ViT
@@ -167,12 +176,15 @@ POS = {
     "banded_tile_nearest": dict(q=0, d=1, starts=2, tq=3, w=4, ndim=5,
                                 ends=6),
 }
-# the banded kernels' template instances in banded.cu (kernels 1 and 2
-# share count_kernel<NDIM, NLEV>)
-SASS_KERNELS = {"banded_tile_count": ("count_kernel", 1),
-                "banded_tile_count3": ("count_kernel", 3),
-                "banded_tile_min_label": ("min_label_kernel", None),
-                "banded_tile_nearest": ("nearest_kernel", None)}
+# the pair-loop kernels' template instances, by library: banded.cu's
+# (kernels 1 and 2 share count_kernel<NDIM, NLEV>) and dense.cu's kernels 6
+# and 8 (count_kernel<NDIM>, min_label_kernel<NDIM>)
+SASS_KERNELS = {"banded_tile_count": ("banded", "count_kernel", 1),
+                "banded_tile_count3": ("banded", "count_kernel", 3),
+                "banded_tile_min_label": ("banded", "min_label_kernel", None),
+                "banded_tile_nearest": ("banded", "nearest_kernel", None),
+                "tile_radius_count": ("dense", "count_kernel", None),
+                "tile_min_label": ("dense", "min_label_kernel", None)}
 # run lengths (256-rank chunks) the banded kernels are also timed at,
 # beside the wrapper's own (ops/kernels._RUN_CHUNKS) and one run a span
 RUN_CHOICES = (1, 2, 4, 8, 16)
@@ -470,6 +482,95 @@ def dense_composite(name, args):
     return lambda: torch.cdist(q, d).square_().min(dim=1)
 
 
+# kernels 6 and 8 take the box pre-pass: their extra calls and tile checks
+BOXED = ("tile_radius_count", "tile_min_label")
+
+
+def decided_args(name, args, n_clumps=32, seed=0):
+    """A call of kernel 6 or 8 whose tiles the boxes decide both ways: 256
+    lanes a clump, so each data chunk and each query block is one clump;
+    a clump's points lie in a cube small enough that every pair inside
+    it is within the radius (kernel 6 takes those tiles whole), clumps
+    come in pairs 0.45 m apart (their tiles run the pair loop) and the
+    pairs lie 10 m apart (skipped); sentinel lanes at the end (kernel 6:
+    sentinel x sentinel tiles taken whole; kernel 8: non-core, radius 0,
+    label big)."""
+    import torch
+    q_t8, ndim = args[0], args[3] if name == "tile_min_label" else args[-1]
+    dev, gen = q_t8.device, torch.Generator(device="cpu").manual_seed(seed)
+    r2 = float(args[2]) if name == "tile_radius_count" else 0.01
+    half = 0.9 * (r2 / (4 * ndim)) ** 0.5
+    n = 256 * n_clumps
+    centre = torch.zeros(n_clumps, ndim)
+    k = torch.arange(n_clumps)
+    centre[:, 0] = 10.0 * (k // 2) + 0.45 * (k % 2)
+    pts = (centre.repeat_interleave(256, 0)
+           + (torch.rand(n, ndim, generator=gen) * 2 - 1) * half)
+    t8 = torch.zeros(8, n + 512)
+    t8[:ndim, :n] = pts.T
+    t8[:ndim, n:] = 1.0e6
+    t8 = t8.to(dev)
+    if name == "tile_radius_count":
+        return (t8, t8.clone(), args[2], ndim)
+    big = args[4]
+    radius2 = torch.zeros(n + 512)
+    radius2[:n] = 0.01 + 0.08 * torch.rand(n, generator=gen)
+    labels = torch.full((n + 512,), big, dtype=torch.int32)
+    labels[:n] = torch.randperm(n, generator=gen).to(torch.int32) + 3
+    return (t8, radius2.to(dev), labels.to(dev), ndim, big)
+
+
+def shuffled_args(name, args, seed=1):
+    """The same call with the data lanes in a random order (kernel 8: its
+    one cloud with radius2 and labels), so every box spans the cloud and
+    every tile runs the pair loop."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    a = list(args)
+    if name == "tile_min_label":
+        perm = torch.randperm(args[0].shape[1], generator=gen).to(
+            args[0].device)
+        for i in (0, 1, 2):
+            a[i] = args[i][..., perm].contiguous()
+    else:
+        perm = torch.randperm(args[1].shape[1], generator=gen).to(
+            args[1].device)
+        a[1] = args[1][:, perm].contiguous()
+    return tuple(a)
+
+
+def tile_stats(name, args, dense_kernels, kernel):
+    """The box pre-pass's decisions on ``args`` by the torch mirror: tiles
+    (warp query group x 256-lane chunk) skipped, taken whole, left to the
+    pair loop, and the pairs inside those. The kernel's own decisions on
+    the same call (its ``tiles=`` record) must equal the mirror's, tile
+    for tile."""
+    import torch
+
+    if name == "tile_min_label":
+        pts_t8, radius2, labels, ndim, big = args
+        plan = dense_kernels.tile_decisions(pts_t8, pts_t8, ndim,
+                                            radius2=radius2, labels=labels,
+                                            big=big)
+    else:
+        q_t8, d_t8, r2, ndim = args
+        plan = dense_kernels.tile_decisions(q_t8, d_t8, ndim, r2=r2)
+    codes = plan["codes"]
+    own = torch.full_like(codes, 255)
+    kernel(*args, tiles=own)
+    if not torch.equal(own, codes):
+        raise AssertionError(
+            f"{name}: the kernel decides {int((own != codes).sum())} of "
+            f"{codes.numel()} tiles otherwise than the mirror (kernel "
+            f"skip/whole/pairs {[int((own == k).sum()) for k in range(3)]}, "
+            f"mirror {[int((codes == k).sum()) for k in range(3)]})")
+    return {"tiles": plan["skip"].numel(),
+            "tiles_skipped": int(plan["skip"].sum()),
+            "tiles_whole": int(plan["whole"].sum()),
+            "tiles_pairs": int(plan["pairs"].sum()),
+            "needed_pairs": plan["needed_pairs"]}
+
+
 def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
     """Kernel vs plain version on the captured ``args`` and on a ragged
     call (``ragged_args``, else cut from ``args``); kernel, plain,
@@ -499,7 +600,29 @@ def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
     if ragged_args is None:
         ragged_args = dense_ragged_args(name, args)
     err = max(compare(args), compare(ragged_args))
-    ms = cuda_ms(lambda: kernel(*args), 5)
+    tiles = None
+    if name in BOXED:
+        # a cloud of 4k + 1 / 4k + 3 lanes (padded to 16-byte rows), a call
+        # whose tiles are skipped and taken whole, one whose data lanes are
+        # shuffled (no tile decided): all bitwise
+        decided, shuffled = decided_args(name, args), shuffled_args(name, args)
+        odd = dense_ragged_args(name, args, 1001, 1499)
+        err = max(err, compare(odd), compare(decided), compare(shuffled))
+        tiles = tile_stats(name, args, dense_kernels, kernel)
+        tiles["odd_call"] = tile_stats(name, odd, dense_kernels, kernel)
+        tiles["decided_call"] = tile_stats(name, decided, dense_kernels,
+                                           kernel)
+        tiles["shuffled_call"] = tile_stats(name, shuffled, dense_kernels,
+                                            kernel)
+        dec = tiles["decided_call"]
+        if not (dec["tiles_skipped"] and dec["tiles_pairs"] and (
+                dec["tiles_whole"] or name == "tile_min_label")):
+            raise AssertionError(f"{name}: the decided call decides "
+                                 f"nothing: {dec}")
+        kernel(*shuffled)
+        tiles["pairs_ms"] = cuda_ms(lambda: kernel(*shuffled), 20)
+        del decided, shuffled, odd
+    ms = cuda_ms(lambda: kernel(*args), 20 if name in BOXED else 5)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
     composite = dense_composite(name, args)
     composite()
@@ -518,6 +641,12 @@ def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
         in_bytes += 4 * n_q + 8 * n_d            # radii and data labels
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     t_bytes = (in_bytes + OUT_BYTES[name] * n_q) / PEAK_HBM_BYTES * 1e3
+    if tiles is not None:
+        # the bound over the pairs the boxes leave to the pair loop
+        t_needed = (tiles["needed_pairs"] * (3 * ndim - 1 + EPILOGUE_OPS[name])
+                    / PEAK_FP32_FLOPS * 1e3)
+        tiles["bound_needed_ms"] = max(t_needed, t_bytes)
+        tiles["needed_share"] = tiles["needed_pairs"] / (n_q * n_d)
     return {"name": name, "route": "cuda",
             "source": "vilgod_tpu_torch/csrc/dense.cu",
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
@@ -527,7 +656,8 @@ def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
             "shape": {"n_q": n_q, "n_d": n_d, "ndim": ndim, "pairs": n_q * n_d,
                       "ragged_check": [ragged_args[0].shape[1],
                                        ragged_args[0 if name == "tile_min_label"
-                                                   else 1].shape[1]]}}
+                                                   else 1].shape[1]]},
+            "tiles": tiles}
 
 
 class VitRecorder:
@@ -813,9 +943,10 @@ def print_ptxas(lib_path, per_kernel=False):
 
 
 def sass_per_pair(lib_path):
-    """Per banded kernel and ndim: the SASS instructions of the innermost
-    loop that does the pair arithmetic (``cuobjdump -sass`` of the built
-    library) over the pairs one trip of it serves. With -fmad=false each
+    """Per pair-loop kernel of the library at ``lib_path`` (banded.cu's
+    kernels 1-4, dense.cu's 6 and 8) and ndim: the SASS instructions of the
+    innermost loop that does the pair arithmetic (``cuobjdump -sass`` of
+    the built library) over the pairs one trip of it serves. With -fmad=false each
     pair squares ndim differences with one FMUL each, so the pairs a trip
     serves are its FMULs over ndim; the loop is the innermost backward
     branch range with the most FMULs. Returns {kernel: {ndim: {"instr",
@@ -824,6 +955,7 @@ def sass_per_pair(lib_path):
     tool = Path(_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
+    library = lib_path.name[len("lib"):].split("_")[0]
     out = {}
     for section in text.split("Function : ")[1:]:
         fn = re.match(r"\S*?\d\d?((?:[a-z]+\d?_)+kernel)I((?:Li\d+E)+)E",
@@ -833,7 +965,7 @@ def sass_per_pair(lib_path):
         targs = [int(t) for t in re.findall(r"\d+", fn.group(2))]
         ndim, nlev = targs[0], (targs[1] if len(targs) > 1 else None)
         name = next((k for k, v in SASS_KERNELS.items()
-                     if v == (fn.group(1), nlev)), None)
+                     if v == (library, fn.group(1), nlev)), None)
         if name is None:
             continue
         ins = [(int(a, 16), op.strip()) for a, op in re.findall(
@@ -1008,11 +1140,12 @@ def main() -> int:
         lib.load()
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths)}")
-    for lib, path in zip(libraries, paths):
-        print_ptxas(path, per_kernel=lib is not dense_kernels.LIBRARY)
-    for name, by_ndim in sass_per_pair(paths[0]).items():
-        log(f"sass {name} (instructions of the pair loop per pair, by "
-            f"ndim): " + json.dumps(by_ndim))
+    for path in paths:
+        print_ptxas(path, per_kernel=True)
+    for path in (paths[0], paths[2]):
+        for name, by_ndim in sass_per_pair(path).items():
+            log(f"sass {name} (instructions of the pair loop per pair, by "
+                f"ndim): " + json.dumps(by_ndim))
 
     cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
     ds = SyntheticDataset(**SCENE)
@@ -1248,7 +1381,8 @@ def main() -> int:
 
     print(smi)
     print(json.dumps({"kernels": [
-        {k: v for k, v in r.items() if k != "shape"} for r in rows]}))
+        {k: v for k, v in r.items() if k not in ("shape", "tiles")}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

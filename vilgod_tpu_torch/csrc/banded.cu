@@ -5,16 +5,14 @@
 //   banded_min_label  <- banded_tile_min_label  (pallas_kernels.py:412)
 //   banded_nearest    <- banded_tile_nearest    (pallas_kernels.py:463)
 //
-// What they compute. Clouds are (8, N) float32, row-major (row c holds
-// coordinate c of every point), cell-sorted, invalid points at a far
-// sentinel. Query block b (tq consecutive queries) scans the data window
-// [s, s + w) with s = clamp(starts[b], 0, n_d - w), exactly the window of
-// the JAX package's XLA fallback (dynamic_slice clamps the same way). The
-// squared distance is (q - d)^2 summed over rows 0..ndim-1 in that order,
-// every product and sum rounded on its own (__fmul_rn / __fadd_rn, and the
-// file builds with -fmad=false): the radius thresholds sit on a 5 mm
-// lattice where an FMA would flip pairs, and the plain PyTorch version of
-// each kernel (vilgod_tpu_torch/ops/kernels.py) must agree bit for bit.
+// What they compute. Clouds are (8, N) float32, cell-sorted, invalid
+// points at a far sentinel. Query block b (tq consecutive queries) scans
+// the data window [s, s + w) with s = clamp(starts[b], 0, n_d - w), exactly
+// the window of the JAX package's XLA fallback (dynamic_slice clamps the
+// same way), in the difference form of span_engine.cuh: the radius
+// thresholds sit on a 5 mm lattice where an FMA would flip pairs, and the
+// plain PyTorch version of each kernel (vilgod_tpu_torch/ops/kernels.py)
+// must agree bit for bit.
 //
 // What bounds them on the H100. Every query meets every point of its span:
 // per (query, data point) pair 3 flops per coordinate less one, plus an
@@ -27,36 +25,24 @@
 // issue at most half of it, and every load, integer or branch instruction
 // takes an issue slot from them.
 //
-// All four kernels are built for that:
+// All four run on the pair engine of span_engine.cuh (2 queries per
+// thread, 16-byte broadcast loads of 4 data points, a cp.async double
+// buffer), and:
 //  - The span. Where the wrapper passes ends (the JAX package's Pallas
 //    kernels take the same per-block span, pallas_kernels.py:278-296),
 //    block b scans exactly [s, min(ends[b], s + w)) and nothing past it;
 //    without ends, [s, s + w). Chunks of 256 data ranks start at s rounded
 //    down to 4 (16-byte copies); the ranks outside the span in a boundary
-//    group of 4 get a NaN first coordinate in shared memory, so every
-//    compare with them is false (a NaN distance is never below the best
-//    nearest one either), and the compute loop stops at the last group of
-//    4 that meets the span. An empty span writes 0 / big / (inf, 0).
-//  - Register tiling. A block holds 256 queries, kQpt = 2 per thread at
-//    stride 128 (coalesced loads and stores); each group of 4 data points
-//    comes from shared memory as one 16-byte broadcast load per coordinate
-//    row (and per radius and label row) and serves 4 x 2 pairs, so loads
-//    are 1 / 4 instructions per pair, not ndim. Four queries per thread
-//    needed nearly twice the registers and was slower on kernels 1 and 3.
-//  - Overlapped staging (scan_span). Two shared-memory stages: chunk k + 1
-//    arrives by cp.async (16 bytes per thread per row) while chunk k is
-//    computed. Per block (ndim [+ 2]) x 256 x 4 bytes x 2 stages: 6 KB for
-//    the 3-D count, 16 KB for the 6-D min-label pass, so a dozen blocks fit
-//    an SM.
+//    group of 4 are NaN-masked (a NaN distance is never below the best
+//    nearest one either). An empty span writes 0 / big / (inf, 0).
 //  - Enough blocks, and no long tail. Each block's span is cut into runs
 //    of `run` whole chunks (2 from the wrapper), one per gridDim.y index,
 //    so that the few long spans of a skewed cloud (a 2x-band nearest
 //    call: half its query blocks empty, its longest spans 112 chunks)
 //    spread over many SMs instead of setting the kernel's tail, and a
 //    grid of few query blocks (the 40960-query entropy counts) still
-//    fills the card. The runs merge into an output set first (by a fill
-//    kernel, on the same stream): integer atomicAdd into 0 for the
-//    counts, atomicMin into big for the labels,
+//    fills the card. The runs merge into an output set first: integer
+//    atomicAdd into 0 for the counts, atomicMin into big for the labels,
 //    and for the nearest a 64-bit atomicMin on (bits(dist2) << 32) | rank
 //    into (bits(inf) << 32) | 0, unpacked into (dist2, rank) afterwards.
 //    dist2 >= 0, so its bits order as its value does, and the lower rank
@@ -67,55 +53,13 @@
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include <type_traits>
+#include "span_engine.cuh"
 
 namespace {
-
-constexpr int kBlock = 256;            // queries per block
-constexpr int kQpt = 2;                // queries per thread
-constexpr int kThreads = kBlock / kQpt;
-constexpr int kChunk = 256;            // data ranks per shared-memory stage
-constexpr int kGroups = kChunk / 4;    // 16-byte groups per row of a stage
-
-template <int NDIM>
-__device__ __forceinline__ void load_query(const float* __restrict__ q,
-                                           int nq, int qi, float (&qv)[NDIM]) {
-#pragma unroll
-  for (int c = 0; c < NDIM; ++c) qv[c] = q[(size_t)c * nq + qi];
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// all but the most recent group have landed (in this thread's view)
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-template <int J>
-__device__ __forceinline__ float lane(const float4& v) {
-  return J == 0 ? v.x : J == 1 ? v.y : J == 2 ? v.z : v.w;
-}
-template <int J>
-__device__ __forceinline__ int lane(const int4& v) {
-  return J == 0 ? v.x : J == 1 ? v.y : J == 2 ? v.z : v.w;
-}
 
 // This block's data ranks: the span [lo, hi) of its query block, chunks of
 // kChunk from base = lo rounded down to 4, and this split's chunks [c0, c1):
 // run y of the span's runs of max(ceil(chunks / gridDim.y), run) chunks.
-struct Span {
-  int lo, hi, base, c0, c1;
-};
-
 __device__ __forceinline__ Span block_span(const int* __restrict__ starts,
                                            const int* __restrict__ ends,
                                            int tq, int nd, int w, int run) {
@@ -132,110 +76,6 @@ __device__ __forceinline__ Span block_span(const int* __restrict__ starts,
   sp.c0 = min(n_chunks, (int)blockIdx.y * per);
   sp.c1 = min(n_chunks, sp.c0 + per);
   return sp;
-}
-
-// Stage chunk c into buf by cp.async: ROWS rows, the NDIM coordinates,
-// then (ROWS = NDIM + 2) the radius2 and label rows. Thread f of the
-// flattened (row, group) grid copies 16 bytes. Groups at or past hi are not
-// read (hi <= nd, and nd and base are multiples of 4, so a group below hi
-// lies inside nd).
-template <int NDIM, int ROWS>
-__device__ __forceinline__ void stage_async(const float* __restrict__ d,
-                                            int nd, const float* radius2,
-                                            const int* labels, const Span& sp,
-                                            int c, float* buf) {
-  const int r0 = sp.base + c * kChunk;
-#pragma unroll
-  for (int it = 0; it < (ROWS * kGroups + kThreads - 1) / kThreads; ++it) {
-    const int f = threadIdx.x + it * kThreads;
-    if (f >= ROWS * kGroups) break;
-    const int row = f / kGroups, g = f % kGroups;
-    const int rank = r0 + 4 * g;
-    if (rank >= sp.hi) continue;
-    const void* src = row < NDIM    ? d + (size_t)row * nd + rank
-                      : row == NDIM ? radius2 + rank
-                                    : static_cast<const void*>(labels + rank);
-    cp_async16(buf + row * kChunk + 4 * g, src);
-  }
-}
-
-// After the wait: the ranks of chunk c outside [lo, hi) that its boundary
-// groups hold get a NaN first coordinate (every compare false). Thread g
-// (< kGroups) copied row 0's group g itself, so it sees that copy landed.
-__device__ __forceinline__ void mask_chunk(const Span& sp, int c, float* buf) {
-  const int g = threadIdx.x;
-  const int rank = sp.base + c * kChunk + 4 * g;
-  if (g < kGroups && rank < sp.hi && (rank < sp.lo || rank + 4 > sp.hi)) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (rank + j < sp.lo || rank + j >= sp.hi)
-        buf[4 * g + j] = __int_as_float(0x7fc00000);
-  }
-}
-
-// The span loop: chunk k + 1 is staged by cp.async while chunk k is
-// computed; body(cur, ng, r0) serves the ng groups of 4 of a chunk that
-// meet the span, r0 the chunk's first global rank.
-template <int NDIM, int ROWS, class Body>
-__device__ __forceinline__ void scan_span(const float* __restrict__ d,
-                                          int nd, const float* radius2,
-                                          const int* labels, const Span& sp,
-                                          float (*buf)[ROWS * kChunk],
-                                          Body&& body) {
-  const int n = sp.c1 - sp.c0;
-  if (n > 0) {
-    stage_async<NDIM, ROWS>(d, nd, radius2, labels, sp, sp.c0, buf[0]);
-    cp_async_commit();
-  }
-  for (int k = 0; k < n; ++k) {
-    const int c = sp.c0 + k;
-    if (k + 1 < n)
-      stage_async<NDIM, ROWS>(d, nd, radius2, labels, sp, c + 1,
-                              buf[(k + 1) & 1]);
-    cp_async_commit();
-    cp_async_wait_prev();
-    float* cur = buf[k & 1];
-    mask_chunk(sp, c, cur);
-    __syncthreads();
-    const int r0 = sp.base + c * kChunk;
-    body(cur, min(kGroups, (sp.hi - r0 + 3) >> 2), r0);
-    __syncthreads();  // before chunk k + 2 lands in this stage
-  }
-}
-
-// (q - d)^2 over rows 0..NDIM-1 in order, each step rounded on its own,
-// for data point J of the group dv
-template <int NDIM, int J>
-__device__ __forceinline__ float dist2_lane(const float* qv,
-                                            const float4 (&dv)[NDIM]) {
-  float diff = __fsub_rn(qv[0], lane<J>(dv[0]));
-  float acc = __fmul_rn(diff, diff);
-#pragma unroll
-  for (int c = 1; c < NDIM; ++c) {
-    diff = __fsub_rn(qv[c], lane<J>(dv[c]));
-    acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-  }
-  return acc;
-}
-
-template <int NDIM>
-__device__ __forceinline__ void load_group(const float* buf, int g,
-                                           float4 (&dv)[NDIM]) {
-  const float4* b4 = reinterpret_cast<const float4*>(buf);
-#pragma unroll
-  for (int c = 0; c < NDIM; ++c) dv[c] = b4[c * kGroups + g];
-}
-
-// counts at NLEV squared radii (kernel 1: one, r2; kernel 2: three, from
-// levels2 on the card), out (nq, NLEV) row-major
-template <int NLEV, int NDIM, int J>
-__device__ __forceinline__ void count_lane(const float* qv,
-                                           const float4 (&dv)[NDIM],
-                                           const float (&lv)[NLEV],
-                                           int (&cnt)[NLEV]) {
-  const float dd = dist2_lane<NDIM, J>(qv, dv);
-#pragma unroll
-  for (int l = 0; l < NLEV; ++l) cnt[l] += dd <= lv[l];
 }
 
 template <int NDIM, int NLEV>
@@ -258,18 +98,7 @@ count_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
     load_query<NDIM>(q, nq, q0 + i * kThreads, qv[i]);
   scan_span<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, buf,
                         [&](const float* cur, int ng, int) {
-#pragma unroll 2
-    for (int g = 0; g < ng; ++g) {
-      float4 dv[NDIM];
-      load_group<NDIM>(cur, g, dv);
-#pragma unroll
-      for (int i = 0; i < kQpt; ++i) {
-        count_lane<NLEV, NDIM, 0>(qv[i], dv, lv, cnt[i]);
-        count_lane<NLEV, NDIM, 1>(qv[i], dv, lv, cnt[i]);
-        count_lane<NLEV, NDIM, 2>(qv[i], dv, lv, cnt[i]);
-        count_lane<NLEV, NDIM, 3>(qv[i], dv, lv, cnt[i]);
-      }
-    }
+    count_groups<NLEV, NDIM>(cur, ng, qv, lv, cnt);
   });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
@@ -306,27 +135,7 @@ min_label_kernel(const float* __restrict__ pts, int n,
   }
   scan_span<NDIM, kRows>(pts, n, radius2, labels, sp, buf,
                          [&](const float* cur, int ng, int) {
-    const float4* r4 = reinterpret_cast<const float4*>(cur + NDIM * kChunk);
-    const int4* l4 = reinterpret_cast<const int4*>(cur + (NDIM + 1) * kChunk);
-#pragma unroll 2
-    for (int g = 0; g < ng; ++g) {
-      float4 dv[NDIM];
-      load_group<NDIM>(cur, g, dv);
-      const float4 dr = r4[g];
-      const int4 dl = l4[g];
-#pragma unroll
-      for (int i = 0; i < kQpt; ++i) {
-        // max-radius joint: HDBSCAN mutual-reachability linkage
-        if (dist2_lane<NDIM, 0>(qv[i], dv) <= fmaxf(qr2[i], lane<0>(dr)))
-          best[i] = min(best[i], lane<0>(dl));
-        if (dist2_lane<NDIM, 1>(qv[i], dv) <= fmaxf(qr2[i], lane<1>(dr)))
-          best[i] = min(best[i], lane<1>(dl));
-        if (dist2_lane<NDIM, 2>(qv[i], dv) <= fmaxf(qr2[i], lane<2>(dr)))
-          best[i] = min(best[i], lane<2>(dl));
-        if (dist2_lane<NDIM, 3>(qv[i], dv) <= fmaxf(qr2[i], lane<3>(dr)))
-          best[i] = min(best[i], lane<3>(dl));
-      }
-    }
+    min_label_groups<NDIM>(cur, ng, qv, qr2, best);
   });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
@@ -404,18 +213,6 @@ nearest_kernel(const float* __restrict__ q, int nq,
   }
 }
 
-template <class T>
-__global__ void fill_kernel(T* __restrict__ out, int n, T value) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = value;
-}
-
-// the splits merge into out, set to value first
-template <class T>
-void fill(T* out, int n, T value, cudaStream_t st) {
-  fill_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, st>>>(out, n, value);
-}
-
 __global__ void nearest_unpack_kernel(
     const unsigned long long* __restrict__ keys, int n,
     float* __restrict__ dist, int* __restrict__ idx) {
@@ -425,20 +222,6 @@ __global__ void nearest_unpack_kernel(
     dist[i] = __uint_as_float((unsigned)(key >> 32));
     idx[i] = (int)(unsigned)key;
   }
-}
-
-// launch(std::integral_constant<int, NDIM>) for ndim 3 to 6, then the
-// launch's error
-template <class Launch>
-int dispatch_ndim(int ndim, Launch&& launch) {
-  switch (ndim) {
-    case 3: launch(std::integral_constant<int, 3>()); break;
-    case 4: launch(std::integral_constant<int, 4>()); break;
-    case 5: launch(std::integral_constant<int, 5>()); break;
-    case 6: launch(std::integral_constant<int, 6>()); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

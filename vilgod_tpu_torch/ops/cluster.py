@@ -100,20 +100,26 @@ def _core_radii(counts3, mask, levels, eps_cap, min_samples):
 
 def _radius_count_full(points, mask, radius2):
     """Self neighbour counts within ``radius2`` over all feature columns,
-    excluding self: the plain difference-form count (the JAX package's
-    branch is its XLA matmul form, with no Pallas kernel)."""
+    excluding self, in the difference form (the JAX package's branch is
+    its XLA matmul form, with no Pallas kernel): kernel 6 for 3-6 columns,
+    its plain version otherwise."""
     n, ndim = points.shape
     pts_t8 = prep_t8(points, mask, 1)
-    counts = dense_kernels.count_plain(pts_t8, pts_t8, radius2, ndim)
+    if 3 <= ndim <= 6:
+        counts = dense_kernels.tile_radius_count(pts_t8, pts_t8, radius2,
+                                                 ndim)
+    else:
+        counts = dense_kernels.count_plain(pts_t8, pts_t8, radius2, ndim)
     return torch.where(mask, torch.clamp(counts - 1, min=0), 0)
 
 
 def _dbscan_full(points, mask, levels, min_samples, min_cluster_size,
                  propagation_rounds, adaptive):
     """All-pairs DBSCAN (small inputs, sizes no tile divides, and plain
-    DBSCAN): every distance pass scans the whole cloud in the original
-    order. ``levels`` (3,) f32 as in :func:`_dbscan_banded`; plain DBSCAN
-    uses ``levels[0]`` (eps) alone."""
+    DBSCAN): every distance pass scans the whole cloud, the min-label
+    rounds over it core-first, the others in the original order.
+    ``levels`` (3,) f32 as in :func:`_dbscan_banded`; plain DBSCAN uses
+    ``levels[0]`` (eps) alone."""
     n, ndim = points.shape
     big = n
     pts_tq = prep_t8(points, mask, TQ)
@@ -133,19 +139,26 @@ def _dbscan_full(points, mask, levels, min_samples, min_cluster_size,
 
     # core compaction by sentinel coordinates: non-core points sit at the
     # far sentinel with radius 0 and label 2**30 on both sides of the
-    # min-label pass
+    # min-label pass. That pass takes the cloud core-first (a stable
+    # permutation), so that few of kernel 8's query groups and data chunks
+    # mix core points with sentinels and its box test skips the rest; each
+    # point's minimum over a set does not depend on the set's order
     core_td = prep_t8(points, core, TD)
+    perm = torch.argsort((~core).to(torch.uint8), stable=True)
+    core_first = prep_t8(points[perm], core[perm], TD)
     n_td = core_td.shape[1]
-    r2_td = torch.zeros(n_td, dtype=torch.float32, device=points.device)
-    r2_td[:n] = torch.where(core, radius2, 0.0)
+    r2_first = torch.zeros(n_td, dtype=torch.float32, device=points.device)
+    r2_first[:n] = torch.where(core, radius2, 0.0)[perm]
     arange = torch.arange(n, dtype=torch.int32, device=points.device)
 
     def radius_min(labels):
-        lab_td = torch.full((n_td,), _BIG_LABEL, dtype=torch.int32,
-                            device=points.device)
-        lab_td[:n] = torch.where(core, labels, _BIG_LABEL)
-        best = dense_kernels.tile_min_label(core_td, r2_td, lab_td, ndim,
-                                            _BIG_LABEL)[:n]
+        lab_first = torch.full((n_td,), _BIG_LABEL, dtype=torch.int32,
+                               device=points.device)
+        lab_first[:n] = torch.where(core, labels, _BIG_LABEL)[perm]
+        best = torch.empty_like(labels)
+        best[perm] = dense_kernels.tile_min_label(core_first, r2_first,
+                                                  lab_first, ndim,
+                                                  _BIG_LABEL)[:n]
         best = torch.clamp(best, max=big)
         return torch.where(core, torch.minimum(labels, best), big)
 

@@ -17,6 +17,14 @@ Each wrapper takes its plain version only for CPU tensors. For CUDA
 tensors it launches its kernel from ``csrc/dense.cu`` (built by
 ``utils/cuda_build.py`` at first use) or raises; it never falls back.
 ``LAUNCHES`` counts kernel launches per wrapper.
+
+Kernels 6 and 8 (``tile_radius_count``, ``tile_min_label``) decide whole
+(warp query group, data chunk) tiles by bounding boxes before the pair
+loop: skipped, taken whole (kernel 6), or left to the pair loop, each
+decision exact. :func:`tile_decisions` mirrors them in torch on the same
+boxes, for the tests and for ``chip_smoke.py``'s needed-pair bounds; on
+the card each kernel writes its own decisions where asked (``tiles=``), so
+that the mirror can be held to them.
 """
 from __future__ import annotations
 
@@ -99,6 +107,115 @@ def nearest_plain(q_t8, d_t8, ndim):
 
 
 # ---------------------------------------------------------------------------
+# the tile decisions of kernels 6 and 8, mirrored
+# ---------------------------------------------------------------------------
+
+# a CUDA block holds 256 queries, 2 per thread at stride 128: warp w's
+# query group is lanes 32w..32w+31 and 128+32w..128+32w+31 of its block;
+# a data chunk is 256 consecutive lanes
+BLOCK, WARP, GROUPS_PER_BLOCK = 256, 32, 4
+
+
+def query_groups(n_q: int) -> torch.Tensor:
+    """(G, 64) lane indices of each warp's query group, -1 past ``n_q``."""
+    n_blocks = -(-n_q // BLOCK)
+    idx = torch.arange(n_blocks * BLOCK).view(n_blocks, 2, GROUPS_PER_BLOCK,
+                                              WARP)
+    idx = idx.permute(0, 2, 1, 3).reshape(n_blocks * GROUPS_PER_BLOCK,
+                                          2 * WARP)
+    return torch.where(idx < n_q, idx, -1)
+
+
+def data_chunks(n_d: int) -> torch.Tensor:
+    """(C, 256) lane indices of each data chunk, -1 past ``n_d``."""
+    idx = torch.arange(-(-n_d // BLOCK) * BLOCK).view(-1, BLOCK)
+    return torch.where(idx < n_d, idx, -1)
+
+
+def _boxes(t8, ndim, lanes, take, r2=None):
+    """Per group of ``lanes`` (rows of lane indices, -1 = none): the
+    per-coordinate min and max (ndim, G) over the lanes ``take`` keeps,
+    their largest ``r2`` (-inf where none) and their count."""
+    keep = (lanes >= 0) & take[lanes.clamp(min=0)]
+    x = t8[:ndim, lanes.clamp(min=0)]
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=t8.device)
+    lo = torch.where(keep, x, inf).amin(dim=-1)
+    hi = torch.where(keep, x, -inf).amax(dim=-1)
+    r2max = (torch.where(keep, r2[lanes.clamp(min=0)], -inf).amax(dim=-1)
+             if r2 is not None else None)
+    return lo, hi, r2max, keep.sum(dim=-1)
+
+
+def tile_bounds(q_lo, q_hi, d_lo, d_hi):
+    """(L, U) (G, C): every pair of a tile has dist2 in [L, U]. Per
+    coordinate the gap G_c = max(0, dmin - qmax, qmin - dmax) and the reach
+    D_c = max(qmax - dmin, dmax - qmin), each difference rounded, then
+    sum(G_c**2) and sum(D_c**2) in coordinate order, each step rounded on
+    its own: rounding is monotone and odd, so |fl(q_c - d_c)| lies in
+    [G_c, D_c] and every rounded square and sum keeps the order. The max
+    ignores NaN (CUDA's fmaxf)."""
+    low = up = None
+    zero = torch.zeros((), dtype=torch.float32, device=q_lo.device)
+    for c in range(q_lo.shape[0]):
+        g = torch.fmax(torch.fmax(d_lo[c][None, :] - q_hi[c][:, None],
+                                  q_lo[c][:, None] - d_hi[c][None, :]), zero)
+        u = torch.fmax(q_hi[c][:, None] - d_lo[c][None, :],
+                       d_hi[c][None, :] - q_lo[c][:, None])
+        low = g * g if low is None else low + g * g
+        up = u * u if up is None else up + u * u
+    return low, up
+
+
+def lanes_ok(t8, ndim):
+    """(N,) lanes whose ndim coordinates are all numbers (not NaN)."""
+    return ~torch.isnan(t8[:ndim]).any(dim=0)
+
+
+def tile_decisions(q_t8, d_t8, ndim, r2=None, radius2=None, labels=None,
+                   big: int = 2 ** 30) -> dict:
+    """The decisions the box pre-pass of kernels 6 and 8 makes, per (warp
+    query group, data chunk) tile, in torch on the same boxes and bounds.
+
+    Kernel 6 (``r2`` given): ``skip`` where L > r2 (no pair can count),
+    ``whole`` where U <= r2 (every pair counts: the chunk's lanes in
+    ``d_count`` are added at once to each query lane that is a number),
+    else ``pairs`` (the pair loop). Kernel 8 (``radius2`` and ``labels``
+    of the one cloud, ``d_t8`` is ``q_t8``): its data boxes keep only
+    lanes with label < big, and a tile is skipped where L > max(the
+    group's largest radius2, the chunk's), else pairs.
+
+    Boxes are over lanes that are numbers in every coordinate; NaN lanes
+    never hit. Returns the (G, C) bool ``skip``, ``whole``, ``pairs``, the
+    (G, C) uint8 ``codes`` the kernels write on request (0 skip, 1 whole,
+    2 pairs), the lane tables ``q_lanes`` (G, 64) and ``d_lanes`` (C, 256) (-1 past the
+    end), ``d_count`` (C,) and ``needed_pairs``: the (query lane, data
+    lane) pairs inside the tiles left to the pair loop."""
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    q_lanes, d_lanes = (query_groups(n_q).to(q_t8.device),
+                        data_chunks(n_d).to(q_t8.device))
+    q_ok, d_ok = lanes_ok(q_t8, ndim), lanes_ok(d_t8, ndim)
+    if labels is not None:
+        d_ok = d_ok & (labels < big)
+    q_lo, q_hi, q_r2, _ = _boxes(q_t8, ndim, q_lanes, q_ok, radius2)
+    d_lo, d_hi, d_r2, d_count = _boxes(d_t8, ndim, d_lanes, d_ok, radius2)
+    low, up = tile_bounds(q_lo, q_hi, d_lo, d_hi)
+    if r2 is not None:
+        r2 = torch.as_tensor(r2, dtype=torch.float32, device=q_t8.device)
+        skip = low > r2
+        whole = ~skip & (up <= r2)
+    else:
+        skip = low > torch.fmax(q_r2[:, None], d_r2[None, :])
+        whole = torch.zeros_like(skip)
+    pairs = ~skip & ~whole
+    needed = (pairs.to(torch.int64) * (q_lanes >= 0).sum(dim=1)[:, None]
+              * (d_lanes >= 0).sum(dim=1)[None, :]).sum()
+    codes = whole.to(torch.uint8) + 2 * pairs.to(torch.uint8)
+    return {"skip": skip, "whole": whole, "pairs": pairs, "codes": codes,
+            "q_lanes": q_lanes, "d_lanes": d_lanes, "d_count": d_count,
+            "needed_pairs": int(needed)}
+
+
+# ---------------------------------------------------------------------------
 # the CUDA library
 # ---------------------------------------------------------------------------
 
@@ -106,17 +223,64 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate ops do
 LIBRARY = CudaLibrary("dense.cu", {
-    # q, nq, d, nd, ndim, r2, out, stream
-    "dense_count": (_P, _I, _P, _I, _I, _F, _P, _P),
+    # q, nq, d, nd, ndim, r2, boxes, out, tiles, stream
+    "dense_count": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P),
     # q, nq, d, nd, ndim, levels2, out, stream
     "dense_count3": (_P, _I, _P, _I, _I, _P, _P, _P),
-    # pts, n, radius2, labels, ndim, big, out, stream
-    "dense_min_label": (_P, _I, _P, _P, _I, _I, _P, _P),
+    # pts, n, radius2, labels, ndim, big, boxes, out, tiles, stream
+    "dense_min_label": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
     # q, nq, d, nd, q_r2, d_r2, labels, ndim, big, out, stream
     "dense_min_label_qd": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P),
     # q, nq, d, nd, ndim, keys, dist, idx, stream
     "dense_nearest": (_P, _I, _P, _I, _I, _P, _P, _P, _P),
 }, extra_flags=("-fmad=false",))
+
+# kernels 6 and 8: a box is 16 floats of the wrapper's scratch
+_BOX_FLOATS = 16
+
+
+def pad_lanes(t, n: int, value):
+    """``t`` (..., N) widened to ``n`` lanes, the new ones set to ``value``:
+    kernels 6 and 8 copy data rows 16 bytes at a time, so their wrappers
+    pad a cloud to a multiple of 4 lanes, with NaN coordinates (every
+    compare with a NaN lane is false, and the boxes leave it out), radius
+    0 and label big."""
+    out = torch.full((*t.shape[:-1], n), value, dtype=t.dtype,
+                     device=t.device)
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _copy16(*tensors) -> bool:
+    """True when rows of the lane count of ``tensors[0]`` can be staged by
+    16-byte copies: a multiple of 4 lanes, every base 16-byte aligned."""
+    return (tensors[0].shape[-1] % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _box_scratch(n_q, n_d, device):
+    """Scratch for the box pre-pass: 4 warp query groups per 256 queries,
+    one box per 256-lane data chunk."""
+    n_boxes = 4 * -(-n_q // BLOCK) + -(-n_d // BLOCK)
+    return torch.empty(n_boxes * _BOX_FLOATS, dtype=torch.float32,
+                       device=device)
+
+
+def _tiles_ptr(name, tiles, q_t8, n_q, n_d) -> int:
+    """The address the kernel writes its tile decisions to (0: none):
+    ``tiles`` must be a contiguous (4 ceil(n_q / 256), ceil(n_d / 256))
+    uint8 tensor beside the CUDA cloud."""
+    if tiles is None:
+        return 0
+    shape = (GROUPS_PER_BLOCK * -(-n_q // BLOCK), -(-n_d // BLOCK))
+    if (not q_t8.is_cuda or tiles.device != q_t8.device
+            or tiles.dtype != torch.uint8 or tuple(tiles.shape) != shape
+            or not tiles.is_contiguous()):
+        raise ValueError(f"{name}: tiles must be a contiguous {shape} uint8 "
+                         f"tensor on the CUDA cloud's device, got "
+                         f"{tuple(tiles.shape)} {tiles.dtype} on "
+                         f"{tiles.device} (cloud on {q_t8.device})")
+    return tiles.data_ptr()
 
 
 def _check_clouds(name, q_t8, d_t8, ndim):
@@ -139,20 +303,29 @@ def _launch(name, fn, *args):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def tile_radius_count(q_t8, d_t8, r2: float, ndim: int = 3) -> torch.Tensor:
+def tile_radius_count(q_t8, d_t8, r2: float, ndim: int = 3, *,
+                      tiles=None) -> torch.Tensor:
     """Per query: data points with squared distance <= ``r2`` (self
-    included) -> (Nq,) int32. Replaces ``pallas_kernels.tile_radius_count``."""
+    included) -> (Nq,) int32. Replaces ``pallas_kernels.tile_radius_count``.
+    On the card, ``tiles`` (a (G, C) uint8 tensor, see
+    :func:`tile_decisions`) receives the kernel's decision per tile."""
     name = "tile_radius_count"
     _check_clouds(name, q_t8, d_t8, ndim)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8},
            (torch.float32, torch.float32), q_t8.device)
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    tiles_ptr = _tiles_ptr(name, tiles, q_t8, n_q, n_d)
     if not q_t8.is_cuda:
         return count_plain(q_t8, d_t8, r2, ndim)
-    out = torch.zeros(q_t8.shape[1], dtype=torch.int32, device=q_t8.device)
+    if not _copy16(d_t8):
+        d_t8 = pad_lanes(d_t8, -(-n_d // 4) * 4, float("nan"))
+    boxes = _box_scratch(n_q, d_t8.shape[1], q_t8.device)
+    out = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().dense_count, q_t8.data_ptr(),
-                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1], ndim,
-                float(r2), out.data_ptr(), stream_of(q_t8.device))
+        _launch(name, LIBRARY.load().dense_count, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), d_t8.shape[1], ndim, float(r2),
+                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
+                stream_of(q_t8.device))
     return out
 
 
@@ -177,12 +350,14 @@ def tile_radius_count3(q_t8, d_t8, levels2, ndim: int = 3) -> torch.Tensor:
     return out
 
 
-def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30):
+def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30,
+                   *, tiles=None):
     """Per point: the minimum label over points within max(radius2_q,
     radius2_d), else ``big`` -> (N,) int32. Points that take no part carry
     sentinel coordinates, radius 0 and a label >= ``big``. Replaces
     ``pallas_kernels.tile_min_label`` (which carries the labels as f32,
-    exact below 2**24)."""
+    exact below 2**24). On the card, ``tiles`` (a (G, C) uint8 tensor, see
+    :func:`tile_decisions`) receives the kernel's decision per tile."""
     name = "tile_min_label"
     n = pts_t8.shape[1]
     _check_clouds(name, pts_t8, pts_t8, ndim)
@@ -190,14 +365,23 @@ def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30):
            (torch.float32, torch.float32, torch.int32), pts_t8.device)
     if radius2.shape != (n,) or labels.shape != (n,):
         raise ValueError(f"{name}: radius2 and labels must be ({n},)")
+    tiles_ptr = _tiles_ptr(name, tiles, pts_t8, n, n)
     if not pts_t8.is_cuda:
         return min_label_plain(pts_t8, radius2, labels, ndim, big)
-    out = torch.full((n,), big, dtype=torch.int32, device=pts_t8.device)
+    if not _copy16(pts_t8, radius2, labels):
+        n4 = -(-n // 4) * 4
+        pts_t8 = pad_lanes(pts_t8, n4, float("nan"))
+        radius2, labels = pad_lanes(radius2, n4, 0.0), pad_lanes(labels, n4,
+                                                                 big)
+    n4 = pts_t8.shape[1]
+    boxes = _box_scratch(n4, n4, pts_t8.device)
+    out = torch.empty(n4, dtype=torch.int32, device=pts_t8.device)
     with torch.cuda.device(pts_t8.device):
-        _launch(name, LIBRARY.load().dense_min_label, pts_t8.data_ptr(), n,
+        _launch(name, LIBRARY.load().dense_min_label, pts_t8.data_ptr(), n4,
                 radius2.data_ptr(), labels.data_ptr(), ndim, int(big),
-                out.data_ptr(), stream_of(pts_t8.device))
-    return out
+                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
+                stream_of(pts_t8.device))
+    return out[:n]
 
 
 def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,6 +22,21 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(source: Path) -> list[Path]:
+    """``source`` and every header it includes by a quoted ``#include``
+    beside it, recursively, each once."""
+    files, todo = [], [Path(source)]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / m.decode() for m in _INCLUDE.findall(
+            f.read_bytes()) if (f.parent / m.decode()).exists()]
+    return files
 
 
 def _nvcc() -> str:
@@ -48,10 +64,13 @@ class CudaLibrary:
 
     @property
     def path(self) -> Path:
-        """The library's path, named by a hash of the source and flags."""
-        tag = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(self.flags).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{tag}.so"
+        """The library's path, named by a hash of the source, the headers
+        it includes and the flags (an edited header builds anew)."""
+        h = hashlib.sha256()
+        for f in source_files(self.source):
+            h.update(f.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start nvcc on the source unless the library exists; returns
