@@ -9,10 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu) with nvcc for
    sm_90a, one nvcc each, started together (timed); ptxas's registers,
    spill stores and static shared memory per kernel of each source; per
-   pair-loop kernel (banded 1-4, dense 6 and 8) and ndim, the SASS
+   pair-loop kernel (banded 1-4, dense 6-9) and ndim, the SASS
    instructions of its pair loop per (query, data point) pair
    (``cuobjdump -sass``);
-2. card against CPU, first half: the first 4 frames of the scene below
+2. card against CPU, first half: the first 4 frames of the scene
+   (``SCENE`` of vilgod_tpu_torch/tools/scenes.py, as are the caps and the
+   dense configuration of phase 3b)
    through ground -> entropy -> clustering -> filter -> classification on
    the card, classified by a narrow bf16 tower on which the fused attention
    kernel holds (this run also warms the CUDA context up for phase 3);
@@ -36,8 +38,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of 0.5 m (not bandable: every (frame, window frame) pair is one dense
    count) and a 16000-point cluster input (per-frame dense DBSCAN and dense
    label transfer), stages 1-3; its counts zeroed just before and read just
-   after: ``tile_radius_count`` 192 times, the other dense kernels at least
-   24 times each;
+   after: ``tile_radius_count`` 192 times, ``tile_radius_count3`` 24,
+   ``tile_nearest`` 48 (label transfer and border attach), ``tile_min_label``
+   at least 24 times. Then the same once more under ``torch.profiler``:
+   each box-decided dense kernel's (6-9) device time per call split into
+   its box pass, its fill (the nearest: its bound pass), its main kernel
+   and its unpack, beside the wrapper's host time per call;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
    banded kernels also on a forced full-width (overflow) call each, small
@@ -50,14 +56,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    chunks and one run a span, outputs bitwise equal to its own), the
    dense kernels also on a ragged call (N not a multiple of 256) each
    (counts, labels and indices equal, squared distances bitwise equal);
-   kernels 6 and 8 (the box pre-pass) also on a call of 1001 x 1499
-   lanes, a constructed call whose tiles are skipped and taken whole, and
-   the captured call with its data lanes shuffled (no tile decided; timed
-   as ``pairs_ms``, the pair loop's own rate); on each of these calls the
-   kernel's own decision per tile equals the torch mirror's, whose tiles
-   skipped, taken whole and left to the pair loop, the pairs in those
-   (``needed_pairs``) and the bound over them (``bound_needed_ms``) the
-   row reports;
+   kernels 6-9 (the box pre-pass) also on a call of 1001 x 1499 lanes, a
+   constructed call whose tiles are skipped (and for the counts taken
+   whole), and the captured call with its data lanes shuffled (no tile
+   decided; timed as ``pairs_ms``, the pair loop's own rate), kernel 9
+   also on its 5-D border-attach call (core points against sentinel lanes
+   interleaved; timed); on each of these calls the kernel's own decision
+   per tile equals the torch mirror's, whose tiles skipped, taken whole
+   and left to the pair loop, the pairs in those (``needed_pairs``) and
+   the bound over them (``bound_needed_ms``) the row reports; each dense
+   kernel is also timed by its device time alone (``device_ms``:
+   torch.profiler's kernel time per call, no gaps between launches);
    ``tile_min_label_qd``, which no path calls, on a 512-lane query block
    of the main path's largest ``banded_tile_min_label`` call against that
    block's window, and on a ragged 1000 x 1500 call (labels equal); the ViT
@@ -91,32 +100,18 @@ import tempfile
 import time
 from pathlib import Path
 
+from vilgod_tpu_torch.tools.scenes import (CAPS, SCENE, STAGES, FirstFrames,
+                                           dense_config)
+
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-SCENE = dict(n_sequences=1, seed=7, n_frames=24, n_ground=120000,
-             n_vehicles=12, n_pedestrians=6, n_cyclists=4, n_moving=6,
-             area=90.0)
-# the bench's full caps (bench.py:68-75)
-CAPS = {"max_points": 196608, "max_ng_points": 131072, "max_clusters": 256,
-        "max_cluster_points": 4096, "max_tracks": 1024,
-        "max_cluster_input": 65536, "clip_batch": 512}
-# the nine-stage main path (vilgod_tpu/config/presets.py pipeline_active)
-STAGES = ["mask_ground_points", "calculate_entropy_scores",
-          "spatial_clustering", "filter_detections", "track_clusters",
-          "classification", "fit_bounding_boxes_simple", "propagate_labels",
-          "evaluate_sequence"]
 GEOMETRY = STAGES[:4]
 # the 4-frame card-vs-CPU check of stages 1-4 and the classification
 CHECK_STAGES = GEOMETRY + ["classification"]
-# the dense configuration: an entropy radius the banded passes refuse and
-# the largest cluster input below the 16384 paged threshold that no tile
-# divides
-DENSE_RADIUS = 0.5
-DENSE_CLUSTER_INPUT = 16000
 EVAL_RANGE = (-50.0, -20.0, 50.0, 20.0)
 CHECK_FRAMES = 4
 # the card-vs-CPU tower: narrow, bf16, 64-wide heads (the fused path)
@@ -152,20 +147,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-class FirstFrames:
-    """The first ``n`` frames of a sequence source (the same scene, not a
-    shorter scene: a synthetic scene's motion depends on its length)."""
-
-    def __init__(self, source, n):
-        self.source, self.sequence_length = source, n
-
-    def get_lidar_points(self, fnr):
-        return self.source.get_lidar_points(fnr)
-
-    def get_pose(self, fnr):
-        return self.source.get_pose(fnr)
-
-
 # argument positions of each wrapper (as ops/banded.py calls them), each
 # block's span end included
 POS = {
@@ -177,14 +158,17 @@ POS = {
                                 ends=6),
 }
 # the pair-loop kernels' template instances, by library: banded.cu's
-# (kernels 1 and 2 share count_kernel<NDIM, NLEV>) and dense.cu's kernels 6
-# and 8 (count_kernel<NDIM>, min_label_kernel<NDIM>)
+# (kernels 1 and 2 share count_kernel<NDIM, NLEV>) and dense.cu's kernels
+# 6-9 (6 and 7 share count_kernel<NDIM, NLEV>; min_label_kernel<NDIM>,
+# nearest_kernel<NDIM>)
 SASS_KERNELS = {"banded_tile_count": ("banded", "count_kernel", 1),
                 "banded_tile_count3": ("banded", "count_kernel", 3),
                 "banded_tile_min_label": ("banded", "min_label_kernel", None),
                 "banded_tile_nearest": ("banded", "nearest_kernel", None),
-                "tile_radius_count": ("dense", "count_kernel", None),
-                "tile_min_label": ("dense", "min_label_kernel", None)}
+                "tile_radius_count": ("dense", "count_kernel", 1),
+                "tile_radius_count3": ("dense", "count_kernel", 3),
+                "tile_min_label": ("dense", "min_label_kernel", None),
+                "tile_nearest": ("dense", "nearest_kernel", None)}
 # run lengths (256-rank chunks) the banded kernels are also timed at,
 # beside the wrapper's own (ops/kernels._RUN_CHUNKS) and one run a span
 RUN_CHOICES = (1, 2, 4, 8, 16)
@@ -234,6 +218,25 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """The card's kernel time (ms) of one call of ``fn``: the device time
+    of every kernel ``reps`` calls launch, under torch.profiler, over
+    ``reps``. Unlike ``cuda_ms`` it leaves out the gaps between launches,
+    which a call of under 100 us leaves when its host time is longer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if str(e.device_type).endswith("CUDA"))
+    return us / reps / 1e3
 
 
 def full_width_args(name, args, m):
@@ -372,12 +375,15 @@ def check_kernel(name, args, kernels, m, ends=None):
 
 
 class DenseRecorder:
-    """Keeps, per dense kernel wrapper, the arguments of its largest call
-    (by query x data points) while ``active``, bound to the wrapper's
-    parameters (positional, defaults applied)."""
+    """Keeps, per dense kernel wrapper and ndim, the arguments of its
+    largest call (by query x data points) and the number of its calls
+    while ``active``, bound to the wrapper's parameters (positional,
+    defaults applied); while ``host`` is a dict, sums each wrapper's host
+    seconds and calls there."""
 
     def __init__(self, dense_kernels):
-        self.active, self.calls = False, {}
+        self.active, self.calls, self.host = False, {}, None
+        self.counts = {}
         for name in dense_kernels.KERNEL_NAMES:
             setattr(dense_kernels, name,
                     self._wrap(name, getattr(dense_kernels, name)))
@@ -392,11 +398,104 @@ class DenseRecorder:
                 a = bound.args
                 size = a[0].shape[1] * (a[1].shape[1] if a[1].dim() == 2
                                         else a[0].shape[1])
-                if name not in self.calls or size > self.calls[name][0]:
-                    self.calls[name] = (size, a)
-            return fn(*args, **kwargs)
+                key = (name, bound.arguments["ndim"])
+                self.counts[key] = self.counts.get(key, 0) + 1
+                if key not in self.calls or size > self.calls[key][0]:
+                    self.calls[key] = (size, a)
+            if self.host is None:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            total = self.host.setdefault(name, [0.0, 0])
+            total[0] += time.perf_counter() - t0
+            total[1] += 1
+            return out
         wrapper.wrapped = fn
         return wrapper
+
+    def largest(self, name):
+        """The arguments of ``name``'s largest call over every ndim."""
+        sizes = {k: v for k, v in self.calls.items() if k[0] == name}
+        if not sizes:
+            raise AssertionError(f"{name}: no dense call recorded")
+        return max(sizes.values(), key=lambda v: v[0])[1]
+
+
+def profile_dense(ds, cfg, dense_rec):
+    """The dense configuration once more under torch.profiler: per
+    box-decided dense kernel (6-9), its calls' device time split into the
+    box pass, the fill (the nearest: its bound pass, which also sets the
+    keys), the main kernel and the unpack (the nearest), by the order of
+    the launches on the stream (each call's begin with its box pass), and
+    the wrapper's host time per call (entry to return; the launches are
+    asynchronous)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vilgod_tpu_torch.pipeline.runner import run_sequences
+
+    dense_rec.host = {}
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_sequences(ds, cfg, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        host, dense_rec.host = dense_rec.host, None
+    events = sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    return dense_call_parts([(e.name, e.time_range.end - e.time_range.start)
+                             for e in events], host)
+
+
+def dense_call_parts(kernels, host):
+    """Per box-decided dense kernel: the mean device time (us) of each part
+    of its calls, from the card's kernels in stream order ((name, us)
+    pairs: a call is its box pass, its fill or bound pass, its main kernel
+    and, for the nearest, its unpack), and the wrapper's host time per call
+    from ``host`` ({wrapper: [seconds, calls]})."""
+    main = {"count_kernel<1>": "tile_radius_count",
+            "count_kernel<3>": "tile_radius_count3",
+            "min_label_kernel": "tile_min_label",
+            "nearest_kernel": "tile_nearest"}
+    parts, cur = {}, None
+    for kname, us in kernels:
+        m = re.search(r"(\w+_kernel)(<[^>]*>)?\(", kname)
+        kind = m.group(1) if m else None
+        if kind == "box_kernel":
+            cur = {"box": us, "fill": 0.0, "unpack": 0.0}
+        elif cur is None:
+            continue
+        elif kind in ("fill_kernel", "nearest_bound_kernel"):
+            cur["fill"] += us
+        elif kind in ("count_kernel", "min_label_kernel", "nearest_kernel"):
+            # count_kernel<NDIM, NLEV>: kernel 6 or 7 by its levels
+            nlev = re.findall(r"\d+", m.group(2) or "")[-1:]
+            name = main[kind + (f"<{nlev[0]}>" if kind == "count_kernel"
+                                else "")]
+            cur["main"] = us
+            parts.setdefault(name, []).append(cur)
+            if name != "tile_nearest":
+                cur = None
+        elif kind == "nearest_unpack_kernel":
+            cur["unpack"] = us
+            cur = None
+        else:
+            cur = None
+    out = {}
+    for name, calls in parts.items():
+        n = len(calls)
+        row = {"calls": n}
+        for part in ("box", "fill", "main", "unpack"):
+            row[f"{part}_us"] = sum(c[part] for c in calls) / n
+        row["device_us"] = sum(row[f"{p}_us"] for p in
+                               ("box", "fill", "main", "unpack"))
+        if name in host:
+            row["host_us"] = host[name][0] / host[name][1] * 1e6
+            row["host_calls"] = host[name][1]
+        out[name] = row
+    return out
 
 
 def dense_ragged_args(name, args, n_q=1000, n_d=1500):
@@ -482,35 +581,44 @@ def dense_composite(name, args):
     return lambda: torch.cdist(q, d).square_().min(dim=1)
 
 
-# kernels 6 and 8 take the box pre-pass: their extra calls and tile checks
-BOXED = ("tile_radius_count", "tile_min_label")
+# kernels 6-9 take the box pre-pass: their extra calls and tile checks
+BOXED = ("tile_radius_count", "tile_radius_count3", "tile_min_label",
+         "tile_nearest")
 
 
 def decided_args(name, args, n_clumps=32, seed=0):
-    """A call of kernel 6 or 8 whose tiles the boxes decide both ways: 256
-    lanes a clump, so each data chunk and each query block is one clump;
-    a clump's points lie in a cube small enough that every pair inside
-    it is within the radius (kernel 6 takes those tiles whole), clumps
-    come in pairs 0.45 m apart (their tiles run the pair loop) and the
-    pairs lie 10 m apart (skipped); sentinel lanes at the end (kernel 6:
-    sentinel x sentinel tiles taken whole; kernel 8: non-core, radius 0,
-    label big)."""
+    """A call of kernels 6-9 whose tiles the boxes decide: 256 lanes a
+    clump, so each data chunk and each query block is one clump; a clump's
+    points lie in a cube small enough that every pair inside it is within
+    the least level (the counts take those tiles whole; the nearest has no
+    level and takes 0.5 m), clumps come in pairs 0.9 times the largest
+    level apart (their tiles run the pair loop) and the pairs lie 10 m
+    apart (skipped); sentinel lanes at the end (the counts: sentinel x
+    sentinel tiles taken whole; kernel 8: non-core, radius 0, label
+    big)."""
     import torch
     q_t8, ndim = args[0], args[3] if name == "tile_min_label" else args[-1]
     dev, gen = q_t8.device, torch.Generator(device="cpu").manual_seed(seed)
-    r2 = float(args[2]) if name == "tile_radius_count" else 0.01
-    half = 0.9 * (r2 / (4 * ndim)) ** 0.5
+    if name == "tile_radius_count":
+        levels = [float(args[2])]
+    elif name == "tile_radius_count3":
+        levels = args[2].tolist()
+    else:
+        levels = [0.01 if name == "tile_min_label" else 0.25]
+    half = 0.9 * (min(levels) / (4 * ndim)) ** 0.5
     n = 256 * n_clumps
     centre = torch.zeros(n_clumps, ndim)
     k = torch.arange(n_clumps)
-    centre[:, 0] = 10.0 * (k // 2) + 0.45 * (k % 2)
+    centre[:, 0] = 10.0 * (k // 2) + 0.9 * max(levels) ** 0.5 * (k % 2)
     pts = (centre.repeat_interleave(256, 0)
            + (torch.rand(n, ndim, generator=gen) * 2 - 1) * half)
     t8 = torch.zeros(8, n + 512)
     t8[:ndim, :n] = pts.T
     t8[:ndim, n:] = 1.0e6
     t8 = t8.to(dev)
-    if name == "tile_radius_count":
+    if name == "tile_nearest":
+        return (t8, t8.clone(), ndim)
+    if name != "tile_min_label":
         return (t8, t8.clone(), args[2], ndim)
     big = args[4]
     radius2 = torch.zeros(n + 512)
@@ -552,9 +660,13 @@ def tile_stats(name, args, dense_kernels, kernel):
         plan = dense_kernels.tile_decisions(pts_t8, pts_t8, ndim,
                                             radius2=radius2, labels=labels,
                                             big=big)
+    elif name == "tile_nearest":
+        q_t8, d_t8, ndim = args
+        plan = dense_kernels.tile_decisions(q_t8, d_t8, ndim, nearest=True)
     else:
-        q_t8, d_t8, r2, ndim = args
-        plan = dense_kernels.tile_decisions(q_t8, d_t8, ndim, r2=r2)
+        q_t8, d_t8, lv, ndim = args
+        key = "r2" if name == "tile_radius_count" else "levels2"
+        plan = dense_kernels.tile_decisions(q_t8, d_t8, ndim, **{key: lv})
     codes = plan["codes"]
     own = torch.full_like(codes, 255)
     kernel(*args, tiles=own)
@@ -571,11 +683,15 @@ def tile_stats(name, args, dense_kernels, kernel):
             "needed_pairs": plan["needed_pairs"]}
 
 
-def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
-    """Kernel vs plain version on the captured ``args`` and on a ragged
-    call (``ragged_args``, else cut from ``args``); kernel, plain,
-    composite and bound times. Every query meets every data point, so the
-    operations are the same whatever the data."""
+def check_dense_kernel(name, args, dense_kernels, ragged_args=None,
+                       extra=None):
+    """Kernel vs plain version on the captured ``args``, on a ragged call
+    (``ragged_args``, else cut from ``args``) and on each call of ``extra``
+    ({label: args}, each also timed with its tile decisions held to the
+    mirror's); kernel, plain, composite and bound times. Every query meets
+    every data point, so the operations over all pairs are the same
+    whatever the data; the box-decided kernels also report the pairs their
+    decisions leave."""
     import torch
 
     kernel = getattr(dense_kernels, name).wrapped
@@ -616,13 +732,29 @@ def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
                                             kernel)
         dec = tiles["decided_call"]
         if not (dec["tiles_skipped"] and dec["tiles_pairs"] and (
-                dec["tiles_whole"] or name == "tile_min_label")):
+                dec["tiles_whole"] or name in ("tile_min_label",
+                                               "tile_nearest"))):
             raise AssertionError(f"{name}: the decided call decides "
                                  f"nothing: {dec}")
         kernel(*shuffled)
         tiles["pairs_ms"] = cuda_ms(lambda: kernel(*shuffled), 20)
         del decided, shuffled, odd
+        for label, a in (extra or {}).items():
+            err = max(err, compare(a))
+            st = tile_stats(name, a, dense_kernels, kernel)
+            st["ms"] = cuda_ms(lambda: kernel(*a), 20)
+            st["device_ms"] = device_ms(lambda: kernel(*a), 20)
+            nq_x, nd_x, ndim_x = a[0].shape[1], a[1].shape[1], a[-1]
+            st["shape"] = {"n_q": nq_x, "n_d": nd_x, "ndim": ndim_x}
+            st["needed_share"] = st["needed_pairs"] / (nq_x * nd_x)
+            st["bound_needed_ms"] = max(
+                st["needed_pairs"] * (3 * ndim_x - 1 + EPILOGUE_OPS[name])
+                / PEAK_FP32_FLOPS * 1e3,
+                (4 * ndim_x * (nq_x + nd_x) + OUT_BYTES[name] * nq_x)
+                / PEAK_HBM_BYTES * 1e3)
+            tiles[label] = st
     ms = cuda_ms(lambda: kernel(*args), 20 if name in BOXED else 5)
+    dev_ms = device_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 1)
     composite = dense_composite(name, args)
     composite()
@@ -654,6 +786,7 @@ def check_dense_kernel(name, args, dense_kernels, ragged_args=None):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms,
             "shape": {"n_q": n_q, "n_d": n_d, "ndim": ndim, "pairs": n_q * n_d,
+                      "device_ms": dev_ms,
                       "ragged_check": [ragged_args[0].shape[1],
                                        ragged_args[0 if name == "tile_min_label"
                                                    else 1].shape[1]]},
@@ -944,7 +1077,7 @@ def print_ptxas(lib_path, per_kernel=False):
 
 def sass_per_pair(lib_path):
     """Per pair-loop kernel of the library at ``lib_path`` (banded.cu's
-    kernels 1-4, dense.cu's 6 and 8) and ndim: the SASS instructions of the
+    kernels 1-4, dense.cu's 6-9) and ndim: the SASS instructions of the
     innermost loop that does the pair arithmetic (``cuobjdump -sass`` of
     the built library) over the pairs one trip of it serves. With -fmad=false each
     pair squares ndim differences with one FMUL each, so the pairs a trip
@@ -1092,20 +1225,6 @@ def score(results, ds):
 def ap_summary(ap):
     return {cls: ap[f"OBJECT_TYPE_TYPE_{cls.upper()}_LEVEL_2/AP"]
             for cls in ("Vehicle", "Pedestrian", "Cyclist")}
-
-
-def dense_config():
-    """The dense configuration: stages 1-3 with a 0.5 m entropy radius and
-    a 16000-point cluster input."""
-    from vilgod_tpu_torch.config import waymo_config
-
-    cfg = waymo_config(capacity={**CAPS,
-                                 "max_cluster_input": DENSE_CLUSTER_INPUT},
-                       pipeline_active=GEOMETRY[:3])
-    for p in cfg["pipeline"]:
-        if p["name"] == "calculate_entropy_scores":
-            p.setdefault("args", {})["max_neighbor_point_dist"] = DENSE_RADIUS
-    return cfg
 
 
 def main() -> int:
@@ -1298,17 +1417,34 @@ def main() -> int:
         log("dense configuration stage seconds: " + json.dumps(dense_times))
         log("dense configuration: " + json.dumps({
             "wall_s": dense_wall, "launches": dense_launches,
-            "args": {k: [list(a.shape) for a in v[1] if hasattr(a, "shape")]
+            "calls_by_ndim": {f"{k[0]}@ndim{k[1]}": v
+                              for k, v in dense_rec.counts.items()},
+            "args": {f"{k[0]}@ndim{k[1]}": [list(a.shape) for a in v[1]
+                                            if hasattr(a, "shape")]
                      for k, v in dense_rec.calls.items()}}))
-        if dense_launches["tile_radius_count"] != 8 * n_frames:
-            raise AssertionError(
-                f"tile_radius_count launched "
-                f"{dense_launches['tile_radius_count']} times, expected "
-                f"{8 * n_frames} (24 frames x 8 window frames)")
-        for name in ("tile_radius_count3", "tile_min_label", "tile_nearest"):
-            if dense_launches[name] < n_frames:
-                raise AssertionError(f"{name} launched {dense_launches[name]} "
-                                     f"times, expected >= {n_frames}")
+        # per frame: 8 window frames of entropy counts, one DBSCAN (its
+        # 3-level count), its border attach and the label transfer
+        for name, per_frame in (("tile_radius_count", 8),
+                                ("tile_radius_count3", 1),
+                                ("tile_nearest", 2)):
+            if dense_launches[name] != per_frame * n_frames:
+                raise AssertionError(
+                    f"{name} launched {dense_launches[name]} times, expected "
+                    f"{per_frame * n_frames} ({n_frames} frames x "
+                    f"{per_frame})")
+        if dense_launches["tile_min_label"] < n_frames:
+            raise AssertionError(f"tile_min_label launched "
+                                 f"{dense_launches['tile_min_label']} times, "
+                                 f"expected >= {n_frames}")
+        # the nearest: one 3-D label transfer and one 5-D border attach
+        # (core points of the DBSCAN features) a frame
+        by_ndim = {k[1]: v for k, v in dense_rec.counts.items()
+                   if k[0] == "tile_nearest"}
+        if by_ndim != {3: n_frames, 5: n_frames}:
+            raise AssertionError(f"tile_nearest calls by ndim {by_ndim}, "
+                                 f"expected {n_frames} at ndim 3 and 5")
+        log("dense configuration profile (us per call): " + json.dumps(
+            profile_dense(ds, dense_config(), dense_rec)))
 
         # ---- 4. kernels against their plain versions ----
         rows = []
@@ -1336,14 +1472,15 @@ def main() -> int:
                 log(f"kernel {name} (no caller; 0 launches on the main "
                     f"path): " + json.dumps(row))
                 continue
-            if name not in dense_rec.calls:
-                raise AssertionError(f"{name}: no dense call recorded")
-            row = check_dense_kernel(name, dense_rec.calls.pop(name)[1],
-                                     dense_kernels)
+            extra = ({"border_attach": dense_rec.calls[("tile_nearest", 5)][1]}
+                     if name == "tile_nearest" else None)
+            row = check_dense_kernel(name, dense_rec.largest(name),
+                                     dense_kernels, extra=extra)
             row["launches"] = launches[name]
             rows.append(row)
             log(f"kernel {name}: " + json.dumps(row))
         del qd_args, qd_ragged
+        dense_rec.calls.clear()
         for name in vit_kernels.KERNEL_NAMES:
             if name not in vit_rec.calls:
                 raise AssertionError(f"{name}: no call recorded")

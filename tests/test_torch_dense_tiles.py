@@ -1,16 +1,18 @@
-"""The tile decisions of the redesigned dense kernels 6 and 8
-(``tile_radius_count``, ``tile_min_label``): the torch mirror of their box
-pre-pass (``dense_kernels.tile_decisions``, the one ``chip_smoke.py``
-phase 4 reads), the core-first order of ``_dbscan_full``'s min-label
-rounds, the lane padding of their CUDA wrappers, the routing of plain
-DBSCAN's counts through kernel 6, and the build's hash of included
-headers.
+"""The tile decisions of the redesigned dense kernels 6-9
+(``tile_radius_count``, ``tile_radius_count3``, ``tile_min_label``,
+``tile_nearest``): the torch mirror of their box pre-pass
+(``dense_kernels.tile_decisions``, the one ``chip_smoke.py`` phase 4
+reads), the core-first order of ``_dbscan_full``'s min-label rounds, the
+lane padding of their CUDA wrappers, the routing of plain DBSCAN's counts
+through kernel 6, and the build's hash of included headers.
 
-A skipped tile must hold no pair within its threshold, a whole tile only
-pairs within r2, and the counts and labels rebuilt from the decisions
-plus the pairs of the other tiles must equal the plain versions bit for
-bit, on random clouds, on 5 mm lattice points at the unnudged DBSCAN
-thresholds, with sentinel lanes, NaN pad lanes and ragged sizes."""
+A skipped tile must hold no pair within its threshold (the nearest: none
+as near as its query's nearest), a whole tile only pairs within the
+levels it takes, and the counts, labels and nearest rebuilt from the
+decisions plus the pairs of the other tiles must equal the plain
+versions bit for bit, on random clouds, on 5 mm lattice points at and
+one ulp off the levels, with sentinel lanes, ties, NaN pad lanes and
+ragged sizes."""
 import numpy as np
 import pytest
 import jax
@@ -173,8 +175,109 @@ def _lane_tiles(plan, n_q, n_d):
     return g_of, torch.arange(n_d) // TK.BLOCK
 
 
+def _count3_cloud(kind, rng):
+    """(q_t8, d_t8, ndim, levels2) of one kernel-7 call; the levels out of
+    order, as nothing in the kernel may assume them sorted."""
+    # the unnudged DBSCAN levels 2 eps, eps, eps*sqrt(2) (eps 0.15) squared
+    dbscan = np.float32([0.3, 0.15, 0.15 * np.sqrt(2)]) ** 2
+    if kind == "lattice":
+        # 5 mm lattice clumps of side 6 cm (corner pairs exactly on level
+        # 1) and 6.5 cm (corner pairs one ulp past level 2), each with a
+        # twin 22 cm along x: a clump and its twin are farther apart than
+        # levels 1 and 2; level 0 lies one ulp below the farthest corner
+        # pair of the 6.5 cm twins, so their tiles run the pair loop and
+        # the 6 cm twins' tiles are whole at level 0 only
+        clumps = []
+        for k, c in enumerate(_lattice(rng.uniform(-3, 3, (4, 3)))):
+            side = np.float32(0.06 if k % 2 == 0 else 0.065)
+            corner = np.array([[0, 0, 0], [side] * 3], np.float32)
+            pts = np.concatenate([corner, _lattice(rng.uniform(
+                0, side, (254, 3)))])
+            for off in (0.0, 0.22):
+                clumps.append(c + np.float32([off, 0, 0]) + pts)
+        q = np.concatenate(clumps).astype(np.float32)
+        d = np.concatenate([q, _lattice(rng.uniform(-3, 3, (700, 3)))])
+        q_t8 = _t8(q)
+        def dist2(i, j):
+            return float(_dist2_t8(q_t8[:, i:i + 1], q_t8[:, j:j + 1], 3))
+
+        corners = [dist2(256 * j, 256 * j + 1) for j in range(len(clumps))]
+        six = max(c for j, c in enumerate(corners) if (j // 2) % 2 == 0)
+        past = min(c for j, c in enumerate(corners) if (j // 2) % 2 == 1)
+        twins = min(dist2(512 * k, 512 * k + 257) for k in (1, 3))
+        below = np.nextafter(np.float32([twins, past]), np.float32(0))
+        levels = np.float32([below[0], six, below[1]])
+        return q_t8, _t8(d), 3, _t(levels)
+    if kind in ("features-5d", "features-6d"):
+        ndim = int(kind[-2])
+        q = _objects(rng, 6, 260, ndim, spread=4.0)
+        return _t8(q, pad_to=1792), _t8(q[::-1]), ndim, _t(dbscan)
+    q_t8, d_t8, ndim, r2 = _count_cloud(kind, rng)
+    return q_t8, d_t8, ndim, _t(np.float32([r2, 0.0225, 0.09]))
+
+
+def _nearest_cloud(kind, rng):
+    """(q_t8, d_t8, ndim, d_plain) of one kernel-9 call: ``d_plain`` is the
+    caller's data cloud, ``d_t8`` the one the kernel sees (the wrapper pads
+    a cloud of 4k + 3 lanes with NaN lanes)."""
+    if kind == "objects":
+        q = _objects(rng, 6, 300, 3)
+        d = q[rng.permutation(len(q))[:1100]] + rng.normal(
+            0, 0.05, (1100, 3)).astype(np.float32)
+        d = d[np.argsort(d[:, 0], kind="stable")]
+        d_t8 = _t8(d, pad_to=1280)
+        return _t8(q, pad_to=2048), d_t8, 3, d_t8
+    if kind == "border-attach":
+        # _dbscan_full's border attach: all points against the core points,
+        # non-core lanes at the sentinel, interleaved in the original order
+        # (valid points first, as the DBSCAN input holds them)
+        pts = _objects(rng, 8, 280, 5, spread=3.0)
+        valid = np.arange(len(pts)) < len(pts) - 100
+        core = valid & (rng.uniform(size=len(pts)) > 0.3)
+        d_t8 = _t8(pts, core, pad_to=2304)
+        return _t8(pts, valid, pad_to=2304), d_t8, 5, d_t8
+    if kind == "ties":
+        # chunk 3 repeats chunk 0: every query near it is as near to a lane
+        # of each, and the lower index must win. Chunks 5 and 6 hold one
+        # point P 256 times each, and the last query block one point Q
+        # whose nearest is P: that group's bound is its nearest dist2
+        # exactly, and so is L of its tiles with chunks 5 and 6, which
+        # must run (the skip rule is strict)
+        a = _lattice(rng.uniform(-1, 1, (256, 3)))
+        far = _lattice(rng.uniform(5, 9, (512, 3)))
+        p = np.full((256, 3), 3.0, np.float32)
+        d = np.concatenate([a, far, a, far[:256], p, p])
+        q = np.concatenate([a + _lattice(rng.uniform(-0.05, 0.05, (256, 3))),
+                            far, p + np.float32([0.3, 0.0, 0.0])])
+        d_t8 = _t8(d)
+        return _t8(q), d_t8, 3, d_t8
+    if kind == "sentinel-group":
+        # four whole query groups at the sentinel (an invalid block), the
+        # data with sentinel lanes of its own
+        q = _objects(rng, 4, 260, 4, spread=3.0)
+        valid = np.ones(len(q), bool)
+        valid[256:512] = False
+        d_valid = rng.uniform(size=len(q)) > 0.2
+        d_t8 = _t8(q[::-1].copy(), d_valid)
+        return _t8(q, valid), d_t8, 4, d_t8
+    if kind == "nan-pad-ragged":
+        pts = _objects(rng, 5, 250, 3)
+        q = pts[:1001]
+        d = (pts[::-1][:1203]
+             + rng.normal(0, 0.03, (1203, 3))).astype(np.float32)
+        d_plain = _t8(d, rng.uniform(size=len(d)) > 0.1)
+        d_t8 = TK.pad_lanes(d_plain, -(-d_plain.shape[1] // 4) * 4,
+                            float("nan"))
+        return _t8(q, nan_pad=5), d_t8, 3, d_plain
+    raise ValueError(kind)
+
+
 COUNT_KINDS = ["random-3d", "objects-sentinel", "lattice", "nan-pad-ragged",
                "features-6d"]
+COUNT3_KINDS = ["random-3d", "objects-sentinel", "lattice", "nan-pad-ragged",
+                "features-5d", "features-6d"]
+NEAREST_KINDS = ["objects", "border-attach", "ties", "sentinel-group",
+                 "nan-pad-ragged"]
 MIN_LABEL_KINDS = ["core-first-5d", "interleaved-5d", "lattice",
                    "nan-pad-ragged", "features-6d"]
 
@@ -239,6 +342,101 @@ def test_min_label_tiles_are_exact(kind):
     want = TK.min_label_plain(pts_t8, r2, lab, ndim, BIG)
     np.testing.assert_array_equal(rebuilt.numpy(), want.numpy())
     assert plan["skip"].any() and (want < BIG).sum() > n // 2
+
+
+@pytest.mark.parametrize("kind", COUNT3_KINDS)
+def test_count3_tiles_are_exact(kind):
+    """Kernel 7: no pair of a skipped tile hits any level, every pair of a
+    level a whole tile takes hits that level, and the whole tiles' lane
+    counts plus the pair-loop tiles' hits give ``count3_plain`` bit for
+    bit."""
+    rng = np.random.default_rng(COUNT3_KINDS.index(kind) + 100)
+    q_t8, d_t8, ndim, levels2 = _count3_cloud(kind, rng)
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    plan = TK.tile_decisions(q_t8, d_t8, ndim, levels2=levels2)
+    dist2 = _dist2_t8(q_t8, d_t8, ndim)
+    g_of, c_of = _lane_tiles(plan, n_q, n_d)
+    hit = dist2[..., None] <= levels2
+    skip = plan["skip"][g_of][:, c_of]
+    assert not (hit.any(dim=-1) & skip).any()
+    q_ok, d_ok = TK.lanes_ok(q_t8, ndim), TK.lanes_ok(d_t8, ndim)
+    ok = q_ok[:, None] & d_ok[None, :]
+    taken = plan["whole_levels"][g_of][:, c_of]
+    assert (hit | ~taken | ~ok[..., None]).all()
+    pairs = plan["pairs"][g_of][:, c_of]
+    rebuilt = ((hit & pairs[..., None]).sum(dim=1)
+               + q_ok[:, None] * (plan["whole_levels"][g_of].long()
+                                  * plan["d_count"][None, :, None]).sum(dim=1))
+    want = TK.count3_plain(q_t8, d_t8, levels2, ndim)
+    np.testing.assert_array_equal(rebuilt.to(torch.int32).numpy(),
+                                  want.numpy())
+    assert plan["codes"].shape == (4 * -(-n_q // 256), -(-n_d // 256))
+    assert torch.equal(plan["codes"].long(),
+                       plan["whole"].long() + 2 * plan["pairs"].long())
+    # the decisions have teeth
+    assert plan["pairs"].any() and (want > 3).any()
+    if kind != "random-3d":
+        assert plan["skip"].any() and plan["needed_pairs"] < n_q * n_d
+    if kind in ("objects-sentinel", "lattice"):
+        assert plan["whole"].any()
+    if kind == "lattice":
+        # pairs sit exactly on level 1 inside tiles that take it whole, and
+        # some whole tiles add at one level only
+        assert (taken[..., 1] & (dist2 == levels2[1])).any()
+        assert (plan["whole_levels"].sum(dim=-1) == 1).any()
+
+
+@pytest.mark.parametrize("kind", NEAREST_KINDS)
+def test_nearest_tiles_are_exact(kind):
+    """Kernel 9: every pair of a skipped tile is strictly farther than its
+    query's true nearest, and the nearest rebuilt from the kept tiles
+    alone is ``nearest_plain``'s on the caller's cloud, bit for bit (dist2
+    bits and index)."""
+    rng = np.random.default_rng(NEAREST_KINDS.index(kind) + 110)
+    q_t8, d_t8, ndim, d_plain = _nearest_cloud(kind, rng)
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    plan = TK.tile_decisions(q_t8, d_t8, ndim, nearest=True)
+    dist2 = _dist2_t8(q_t8, d_t8, ndim)
+    g_of, c_of = _lane_tiles(plan, n_q, n_d)
+    skip = plan["skip"][g_of][:, c_of]
+    want_d, want_i = TK.nearest_plain(q_t8, d_plain, ndim)
+    found = torch.isfinite(want_d)
+    d_ok = TK.lanes_ok(d_t8, ndim)
+    assert ((dist2 > want_d[:, None]) | ~skip | ~found[:, None]
+            | ~d_ok[None, :]).all()
+    inf = torch.tensor(float("inf"))
+    kept = torch.where(skip | dist2.isnan(), inf, dist2)
+    best, arg = kept.min(dim=1)
+    idx = torch.where(best < inf, arg.to(torch.int32), 0)
+    np.testing.assert_array_equal(best.view(torch.int32).numpy(),
+                                  want_d.view(torch.int32).numpy())
+    np.testing.assert_array_equal(idx.numpy(), want_i.numpy())
+    # each group's bound holds its lanes' nearest distances
+    assert not plan["whole"].any()
+    assert (want_d[found] <= plan["t"][g_of][found]).all()
+    # the decisions have teeth
+    assert plan["skip"].any() and plan["pairs"].any()
+    assert plan["needed_pairs"] < n_q * n_d
+    sent = plan["d_sent"] > 0
+    if kind in ("border-attach", "sentinel-group"):
+        # chunks holding sentinel lanes are skipped too
+        assert (plan["skip"] & sent[None, :]).any()
+    if kind == "sentinel-group":
+        # a group all at the sentinel takes a sentinel lane at dist2 0
+        s_lanes = TK.at_sentinel(q_t8, ndim)
+        assert s_lanes[256:512].all() and (want_d[256:512] == 0).all()
+    if kind == "ties":
+        # the nearest is reached in two chunks, and the first one wins
+        at = dist2 == want_d[:, None]
+        twice = (at.sum(dim=1) >= 2) & found
+        first = at.to(torch.uint8).argmax(dim=1).to(torch.int32)
+        assert twice.sum() > 100 and torch.equal(want_i[twice], first[twice])
+        assert (want_i[:256] < 256).all() and (want_i[768:] == 1280).all()
+        tight = plan["t"][-4:]
+        assert torch.equal(tight, want_d[768:].max().expand(4))
+    if kind == "nan-pad-ragged":
+        assert d_t8[:, d_plain.shape[1]:].isnan().all()
+        assert (~TK.lanes_ok(q_t8, ndim)).sum() == 5
 
 
 def test_core_first_order_leaves_fewer_pairs():
@@ -358,17 +556,35 @@ def test_pad_lanes_change_no_result():
         got[:n].numpy(), TK.min_label_plain(pts_t8, r2v, lab, ndim,
                                             BIG).numpy())
     assert (got[n:] == BIG).all()
+    # kernels 7 and 9: a NaN data lane changes no count and takes no
+    # nearest, nor any other lane of its column chunk with it
+    q_t8, d_t8, ndim, levels2 = _count3_cloud("random-3d", rng)
+    n_d = d_t8.shape[1]
+    padded = TK.pad_lanes(d_t8, (n_d // 4 + 1) * 4, float("nan"))
+    np.testing.assert_array_equal(
+        TK.count3_plain(q_t8, padded, levels2, ndim).numpy(),
+        TK.count3_plain(q_t8, d_t8, levels2, ndim).numpy())
+    got, want = (TK.nearest_plain(q_t8, d, ndim) for d in (padded, d_t8))
+    assert (want[1] >= 1024).any()      # nearest lanes in the NaN chunk
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("name", ["tile_radius_count", "tile_min_label"])
+@pytest.mark.parametrize("name", ["tile_radius_count", "tile_radius_count3",
+                                  "tile_min_label", "tile_nearest"])
 def test_tiles_record_needs_the_card(name):
     """The kernels' tile record (``tiles=``) is written only on the card:
     given with a CPU cloud, the wrapper raises rather than leave it unset;
     without it the CPU call is the plain version."""
     rng = np.random.default_rng(94)
-    if name == "tile_radius_count":
+    if name in ("tile_radius_count", "tile_radius_count3", "tile_nearest"):
         q_t8, d_t8, ndim, r2 = _count_cloud("random-3d", rng)
-        args, plain = (q_t8, d_t8, r2, ndim), TK.count_plain
+        args, plain = {
+            "tile_radius_count": ((q_t8, d_t8, r2, ndim), TK.count_plain),
+            "tile_radius_count3": ((q_t8, d_t8, _t(np.float32([r2, 0.04,
+                                                               1.0])),
+                                    ndim), TK.count3_plain),
+            "tile_nearest": ((q_t8, d_t8, ndim), TK.nearest_plain)}[name]
         shape = (4 * -(-q_t8.shape[1] // 256), -(-d_t8.shape[1] // 256))
     else:
         pts_t8, r2v, lab, ndim = _min_label_cloud("core-first-5d", rng)
@@ -378,7 +594,9 @@ def test_tiles_record_needs_the_card(name):
     fn = getattr(TK, name)
     with pytest.raises(ValueError, match="tiles must be"):
         fn(*args, tiles=torch.zeros(shape, dtype=torch.uint8))
-    np.testing.assert_array_equal(fn(*args).numpy(), plain(*args).numpy())
+    got, want = fn(*args), plain(*args)
+    for g, w in zip(*((x,) if torch.is_tensor(x) else x for x in (got, want))):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 def test_library_name_hashes_included_headers(tmp_path):

@@ -44,7 +44,9 @@
 //    fills the card. The runs merge into an output set first: integer
 //    atomicAdd into 0 for the counts, atomicMin into big for the labels,
 //    and for the nearest a 64-bit atomicMin on (bits(dist2) << 32) | rank
-//    into (bits(inf) << 32) | 0, unpacked into (dist2, rank) afterwards.
+//    into (bits(inf) << 32) | 0, unpacked into (dist2, rank) afterwards
+//    (nearest_key, kNoNearest and nearest_unpack_kernel, with the nearest
+//    pair loop, are span_engine.cuh's, which dense.cu's kernel 9 shares).
 //    dist2 >= 0, so its bits order as its value does, and the lower rank
 //    wins a tie across runs as the strict < over ascending ranks does
 //    inside one: every merge is order-free, so no result depends on the
@@ -147,25 +149,6 @@ min_label_kernel(const float* __restrict__ pts, int n,
   }
 }
 
-// strict < over ascending ranks keeps the FIRST minimum (argmin); a NaN
-// distance (a masked rank) never wins
-template <int NDIM, int J>
-__device__ __forceinline__ void nearest_lane(const float* qv,
-                                             const float4 (&dv)[NDIM],
-                                             int rank, float& best, int& bi) {
-  const float dd = dist2_lane<NDIM, J>(qv, dv);
-  if (dd < best) {
-    best = dd;
-    bi = rank + J;
-  }
-}
-
-__device__ __forceinline__ unsigned long long nearest_key(float dist2,
-                                                          int rank) {
-  return ((unsigned long long)__float_as_uint(dist2) << 32) |
-         (unsigned)rank;
-}
-
 template <int NDIM>
 __global__ void __launch_bounds__(kThreads)
 nearest_kernel(const float* __restrict__ q, int nq,
@@ -187,19 +170,7 @@ nearest_kernel(const float* __restrict__ q, int nq,
   }
   scan_span<NDIM, NDIM>(d, nd, nullptr, nullptr, sp, buf,
                         [&](const float* cur, int ng, int r0) {
-#pragma unroll 2
-    for (int g = 0; g < ng; ++g) {
-      float4 dv[NDIM];
-      load_group<NDIM>(cur, g, dv);
-      const int rank = r0 + 4 * g;
-#pragma unroll
-      for (int i = 0; i < kQpt; ++i) {
-        nearest_lane<NDIM, 0>(qv[i], dv, rank, best[i], bi[i]);
-        nearest_lane<NDIM, 1>(qv[i], dv, rank, best[i], bi[i]);
-        nearest_lane<NDIM, 2>(qv[i], dv, rank, best[i], bi[i]);
-        nearest_lane<NDIM, 3>(qv[i], dv, rank, best[i], bi[i]);
-      }
-    }
+    nearest_groups<NDIM>(cur, ng, r0, qv, best, bi);
   });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
@@ -210,17 +181,6 @@ nearest_kernel(const float* __restrict__ q, int nq,
     } else if (best[i] < INFINITY) {
       atomicMin(keys + qi, nearest_key(best[i], bi[i]));
     }
-  }
-}
-
-__global__ void nearest_unpack_kernel(
-    const unsigned long long* __restrict__ keys, int n,
-    float* __restrict__ dist, int* __restrict__ idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const unsigned long long key = keys[i];
-    dist[i] = __uint_as_float((unsigned)(key >> 32));
-    idx[i] = (int)(unsigned)key;
   }
 }
 
@@ -275,8 +235,7 @@ int banded_nearest(const float* q, int nq, const float* d, int nd,
                    unsigned long long* keys, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(nq / kBlock, split);
-  // nearest_key(inf, 0): no candidate yet
-  if (split > 1) fill(keys, nq, 0x7f800000ULL << 32, st);
+  if (split > 1) fill(keys, nq, kNoNearest, st);
   const int err = dispatch_ndim(ndim, [&](auto nd_) {
     nearest_kernel<decltype(nd_)::value><<<grid, kThreads, 0, st>>>(
         q, nq, d, nd, starts, ends, tq, w, run, dist, idx, keys);

@@ -1,5 +1,5 @@
 // The pair engine of the neighbour kernels for Hopper (sm_90a), shared by
-// banded.cu (kernels 1-4) and dense.cu (kernels 6 and 8).
+// banded.cu (kernels 1-4) and dense.cu (kernels 6-9).
 //
 // Clouds are (8, N) float32, row-major (row c holds coordinate c of every
 // point). The squared distance is (q - d)^2 summed over rows 0..ndim-1 in
@@ -19,16 +19,17 @@
 //  - Each group of 4 data points comes from shared memory as one 16-byte
 //    broadcast load per coordinate row (and per radius and label row) and
 //    serves 4 x 2 pairs, so loads are 1 / 4 instructions per pair, not
-//    ndim (count_groups, min_label_groups).
+//    ndim (count_groups, min_label_groups, nearest_groups).
 //  - A scan visits the consecutive chunks [c0, c1) of a span: a banded
 //    block's run, or a dense block's one chunk when its box test needs
 //    it. Ranks outside [lo, hi) in a boundary group of 4 get a NaN first
 //    coordinate in shared memory, so every compare with them is false;
 //    the pair loop stops at the last group of 4 that meets [lo, hi).
 //  - The launcher cuts a block's chunks into runs over gridDim.y; the runs
-//    merge into an output set first by fill_kernel on the same stream
-//    (integer atomicAdd into 0, atomicMin into big): order-free, so no
-//    result depends on the split.
+//    merge into an output set first on the same stream (fill_kernel:
+//    integer atomicAdd into 0, atomicMin into big; the nearest: a 64-bit
+//    atomicMin on nearest_key into kNoNearest, then nearest_unpack_kernel):
+//    order-free, so no result depends on the split.
 
 #pragma once
 
@@ -230,6 +231,64 @@ __device__ __forceinline__ void min_label_groups(
       if (dist2_lane<NDIM, 3>(qv[i], dv) <= fmaxf(qr2[i], lane<3>(dr)))
         best[i] = min(best[i], lane<3>(dl));
     }
+  }
+}
+
+// strict < over ascending ranks keeps the FIRST minimum (argmin); a NaN
+// distance (a masked rank, a NaN lane) never wins
+template <int NDIM, int J>
+__device__ __forceinline__ void nearest_lane(const float* qv,
+                                             const float4 (&dv)[NDIM],
+                                             int rank, float& best, int& bi) {
+  const float dd = dist2_lane<NDIM, J>(qv, dv);
+  if (dd < best) {
+    best = dd;
+    bi = rank + J;
+  }
+}
+
+// The nearest pair loop over the ng groups of 4 of a staged chunk whose
+// first rank is r0: per query the least dist2 and its first rank.
+template <int NDIM>
+__device__ __forceinline__ void nearest_groups(const float* cur, int ng,
+                                               int r0,
+                                               const float (&qv)[kQpt][NDIM],
+                                               float (&best)[kQpt],
+                                               int (&bi)[kQpt]) {
+#pragma unroll 2
+  for (int g = 0; g < ng; ++g) {
+    float4 dv[NDIM];
+    load_group<NDIM>(cur, g, dv);
+    const int rank = r0 + 4 * g;
+#pragma unroll
+    for (int i = 0; i < kQpt; ++i) {
+      nearest_lane<NDIM, 0>(qv[i], dv, rank, best[i], bi[i]);
+      nearest_lane<NDIM, 1>(qv[i], dv, rank, best[i], bi[i]);
+      nearest_lane<NDIM, 2>(qv[i], dv, rank, best[i], bi[i]);
+      nearest_lane<NDIM, 3>(qv[i], dv, rank, best[i], bi[i]);
+    }
+  }
+}
+
+// The nearest's merge key: dist2 >= 0, so its bits order as its value
+// does, and the lower rank in the low half wins a tie as the strict < over
+// ascending ranks does inside one block: a 64-bit atomicMin over keys is
+// order-free. kNoNearest = nearest_key(inf, 0): no candidate yet.
+__device__ __forceinline__ unsigned long long nearest_key(float dist2,
+                                                          int rank) {
+  return ((unsigned long long)__float_as_uint(dist2) << 32) |
+         (unsigned)rank;
+}
+constexpr unsigned long long kNoNearest = 0x7f800000ULL << 32;
+
+__global__ void nearest_unpack_kernel(
+    const unsigned long long* __restrict__ keys, int n,
+    float* __restrict__ dist, int* __restrict__ idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const unsigned long long key = keys[i];
+    dist[i] = __uint_as_float((unsigned)(key >> 32));
+    idx[i] = (int)(unsigned)key;
   }
 }
 

@@ -18,13 +18,14 @@ tensors it launches its kernel from ``csrc/dense.cu`` (built by
 ``utils/cuda_build.py`` at first use) or raises; it never falls back.
 ``LAUNCHES`` counts kernel launches per wrapper.
 
-Kernels 6 and 8 (``tile_radius_count``, ``tile_min_label``) decide whole
-(warp query group, data chunk) tiles by bounding boxes before the pair
-loop: skipped, taken whole (kernel 6), or left to the pair loop, each
-decision exact. :func:`tile_decisions` mirrors them in torch on the same
-boxes, for the tests and for ``chip_smoke.py``'s needed-pair bounds; on
-the card each kernel writes its own decisions where asked (``tiles=``), so
-that the mirror can be held to them.
+Kernels 6-9 (``tile_radius_count``, ``tile_radius_count3``,
+``tile_min_label``, ``tile_nearest``) decide whole (warp query group, data
+chunk) tiles by bounding boxes before the pair loop: skipped, taken whole
+(the counts), or left to the pair loop, each decision exact.
+:func:`tile_decisions` mirrors them in torch on the same boxes, for the
+tests and for ``chip_smoke.py``'s needed-pair bounds; on the card each
+kernel writes its own decisions where asked (``tiles=``), so that the
+mirror can be held to them.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import CudaLibrary, launch, stream_of
-from .kernels import _check, _dist2_t8, _plain_chunk
+from .kernels import SENTINEL, _check, _dist2_t8, _plain_chunk
 
 KERNEL_NAMES = ("tile_radius_count", "tile_radius_count3", "tile_min_label",
                 "tile_nearest", "tile_min_label_qd")
@@ -92,11 +93,21 @@ def min_label_qd_plain(q_t8, d_t8, q_r2, d_r2, labels, ndim, big):
 
 
 def nearest_plain(q_t8, d_t8, ndim):
+    """Per query: the least dist2 and the first data index reaching it,
+    (inf, 0) where none is below inf. NaN data lanes are the port's pad
+    lanes and never win, one lane at a time, as in the kernel. There the
+    Pallas ``tile_nearest`` differs: its ``jnp.min`` over a tile returns
+    NaN when one lane is NaN, which drops the tile's other lanes too. The
+    JAX package pads with the sentinel, not NaN, so the two agree on every
+    cloud without NaN coordinates."""
     n_q = q_t8.shape[1]
     dist = torch.full((n_q,), float("inf"), dtype=torch.float32,
                       device=q_t8.device)
     idx = torch.zeros(n_q, dtype=torch.int32, device=q_t8.device)
     for k, dist2 in _columns(q_t8, d_t8, ndim):
+        # a NaN lane is never nearer (as in the kernel's strict <), and
+        # takes no other lane of its tile with it (torch.min would)
+        dist2.masked_fill_(dist2.isnan(), float("inf"))
         # the first minimum of each tile, and a later tile only when
         # strictly nearer: the lowest index wins ties (argmin)
         best, arg = dist2.min(dim=1)
@@ -107,7 +118,7 @@ def nearest_plain(q_t8, d_t8, ndim):
 
 
 # ---------------------------------------------------------------------------
-# the tile decisions of kernels 6 and 8, mirrored
+# the tile decisions of kernels 6-9, mirrored
 # ---------------------------------------------------------------------------
 
 # a CUDA block holds 256 queries, 2 per thread at stride 128: warp w's
@@ -171,40 +182,93 @@ def lanes_ok(t8, ndim):
     return ~torch.isnan(t8[:ndim]).any(dim=0)
 
 
+def at_sentinel(t8, ndim):
+    """(N,) lanes at the sentinel in all ndim coordinates: one point S."""
+    return (t8[:ndim] == SENTINEL).all(dim=0)
+
+
+def nearest_thresholds(q_t8, ndim, q_lanes, q_ok, d_lo, d_hi, s_box=None):
+    """Kernel 9's T (G,): per query lane that is a number the least U over
+    the chunk boxes (and S's box ``s_box`` (ndim,), where a chunk holds
+    sentinel lanes), each lane a box of one point; then per group the
+    largest over its lanes (-inf where it has none). Every such lane's
+    nearest dist2 is at most T: the chunk that attains its least U holds a
+    point at most that far."""
+    x = q_t8[:ndim]
+    _, up = tile_bounds(x, x, d_lo, d_hi)
+    t_lane = up.amin(dim=1)
+    if s_box is not None:
+        _, up_s = tile_bounds(x, x, s_box[:, None], s_box[:, None])
+        t_lane = torch.minimum(t_lane, up_s[:, 0])
+    ninf = torch.tensor(float("-inf"), dtype=torch.float32, device=x.device)
+    t_lane = torch.where(q_ok, t_lane, ninf)
+    return torch.where(q_lanes >= 0, t_lane[q_lanes.clamp(min=0)],
+                       ninf).amax(dim=1)
+
+
 def tile_decisions(q_t8, d_t8, ndim, r2=None, radius2=None, labels=None,
-                   big: int = 2 ** 30) -> dict:
-    """The decisions the box pre-pass of kernels 6 and 8 makes, per (warp
+                   big: int = 2 ** 30, levels2=None,
+                   nearest: bool = False) -> dict:
+    """The decisions the box pre-pass of kernels 6-9 makes, per (warp
     query group, data chunk) tile, in torch on the same boxes and bounds.
 
-    Kernel 6 (``r2`` given): ``skip`` where L > r2 (no pair can count),
-    ``whole`` where U <= r2 (every pair counts: the chunk's lanes in
-    ``d_count`` are added at once to each query lane that is a number),
-    else ``pairs`` (the pair loop). Kernel 8 (``radius2`` and ``labels``
-    of the one cloud, ``d_t8`` is ``q_t8``): its data boxes keep only
-    lanes with label < big, and a tile is skipped where L > max(the
-    group's largest radius2, the chunk's), else pairs.
+    Kernels 6 (``r2``) and 7 (``levels2``, any order): per level k a tile
+    adds nothing where L > l_k and the chunk's lanes in ``d_count`` to each
+    query lane that is a number where U <= l_k; it is ``skip`` where no
+    level adds, ``whole`` where every level is decided and one adds
+    (``whole_levels`` (G, C, levels) says which add), else ``pairs`` (the
+    pair loop, which counts every level). Kernel 8 (``radius2`` and
+    ``labels`` of the one cloud, ``d_t8`` is ``q_t8``): its data boxes keep
+    only lanes with label < big, and a tile is skipped where L > max(the
+    group's largest radius2, the chunk's), else pairs. Kernel 9
+    (``nearest``): data lanes at the sentinel S in every coordinate stay
+    out of the chunk boxes (``d_sent`` (C,) counts them); each group gets
+    the bound ``t`` (G,) of :func:`nearest_thresholds`, and a tile is
+    skipped where L > T strictly, and, where its chunk holds sentinel
+    lanes, S's own L > T too: every pair left out is then strictly
+    farther than its query's nearest, so no minimum and no tie is lost.
 
     Boxes are over lanes that are numbers in every coordinate; NaN lanes
     never hit. Returns the (G, C) bool ``skip``, ``whole``, ``pairs``, the
     (G, C) uint8 ``codes`` the kernels write on request (0 skip, 1 whole,
-    2 pairs), the lane tables ``q_lanes`` (G, 64) and ``d_lanes`` (C, 256) (-1 past the
-    end), ``d_count`` (C,) and ``needed_pairs``: the (query lane, data
-    lane) pairs inside the tiles left to the pair loop."""
+    2 pairs), the lane tables ``q_lanes`` (G, 64) and ``d_lanes`` (C, 256)
+    (-1 past the end), ``d_count`` (C,) and ``needed_pairs``: the (query
+    lane, data lane) pairs inside the tiles left to the pair loop."""
     n_q, n_d = q_t8.shape[1], d_t8.shape[1]
     q_lanes, d_lanes = (query_groups(n_q).to(q_t8.device),
                         data_chunks(n_d).to(q_t8.device))
     q_ok, d_ok = lanes_ok(q_t8, ndim), lanes_ok(d_t8, ndim)
     if labels is not None:
         d_ok = d_ok & (labels < big)
+    out = {}
+    if nearest:
+        d_s = at_sentinel(d_t8, ndim)
+        d_ok = d_ok & ~d_s
+        out["d_sent"] = (d_s[d_lanes.clamp(min=0)] & (d_lanes >= 0)).sum(dim=1)
     q_lo, q_hi, q_r2, _ = _boxes(q_t8, ndim, q_lanes, q_ok, radius2)
     d_lo, d_hi, d_r2, d_count = _boxes(d_t8, ndim, d_lanes, d_ok, radius2)
     low, up = tile_bounds(q_lo, q_hi, d_lo, d_hi)
-    if r2 is not None:
-        r2 = torch.as_tensor(r2, dtype=torch.float32, device=q_t8.device)
-        skip = low > r2
-        whole = ~skip & (up <= r2)
+    whole = None
+    if r2 is not None or levels2 is not None:
+        lv = torch.as_tensor(r2 if levels2 is None else levels2,
+                             dtype=torch.float32, device=q_t8.device).view(-1)
+        adds_none = low[..., None] > lv
+        adds_all = up[..., None] <= lv
+        skip = adds_none.all(dim=-1)
+        whole = ~skip & (adds_none | adds_all).all(dim=-1)
+        out["whole_levels"] = whole[..., None] & adds_all
+    elif nearest:
+        s = torch.full((ndim,), SENTINEL, dtype=torch.float32,
+                       device=q_t8.device)
+        has_s = out["d_sent"] > 0
+        t = nearest_thresholds(q_t8, ndim, q_lanes, q_ok, d_lo, d_hi,
+                               s if bool(has_s.any()) else None)
+        low_s, _ = tile_bounds(q_lo, q_hi, s[:, None], s[:, None])
+        skip = (low > t[:, None]) & (~has_s[None, :] | (low_s > t[:, None]))
+        out["t"] = t
     else:
         skip = low > torch.fmax(q_r2[:, None], d_r2[None, :])
+    if whole is None:
         whole = torch.zeros_like(skip)
     pairs = ~skip & ~whole
     needed = (pairs.to(torch.int64) * (q_lanes >= 0).sum(dim=1)[:, None]
@@ -212,7 +276,7 @@ def tile_decisions(q_t8, d_t8, ndim, r2=None, radius2=None, labels=None,
     codes = whole.to(torch.uint8) + 2 * pairs.to(torch.uint8)
     return {"skip": skip, "whole": whole, "pairs": pairs, "codes": codes,
             "q_lanes": q_lanes, "d_lanes": d_lanes, "d_count": d_count,
-            "needed_pairs": int(needed)}
+            "needed_pairs": int(needed), **out}
 
 
 # ---------------------------------------------------------------------------
@@ -223,25 +287,24 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate ops do
 LIBRARY = CudaLibrary("dense.cu", {
-    # q, nq, d, nd, ndim, r2, boxes, out, tiles, stream
-    "dense_count": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P),
-    # q, nq, d, nd, ndim, levels2, out, stream
-    "dense_count3": (_P, _I, _P, _I, _I, _P, _P, _P),
+    # q, nq, d, nd, ndim, r2, levels2 (null: the one level r2), boxes, out,
+    # tiles, stream
+    "dense_count": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P, _P),
     # pts, n, radius2, labels, ndim, big, boxes, out, tiles, stream
     "dense_min_label": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
     # q, nq, d, nd, q_r2, d_r2, labels, ndim, big, out, stream
     "dense_min_label_qd": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P),
-    # q, nq, d, nd, ndim, keys, dist, idx, stream
-    "dense_nearest": (_P, _I, _P, _I, _I, _P, _P, _P, _P),
+    # q, nq, d, nd, ndim, sentinel, boxes, keys, dist, idx, tiles, stream
+    "dense_nearest": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P),
 }, extra_flags=("-fmad=false",))
 
-# kernels 6 and 8: a box is 16 floats of the wrapper's scratch
+# kernels 6-9: a box is 16 floats of the wrapper's scratch
 _BOX_FLOATS = 16
 
 
 def pad_lanes(t, n: int, value):
     """``t`` (..., N) widened to ``n`` lanes, the new ones set to ``value``:
-    kernels 6 and 8 copy data rows 16 bytes at a time, so their wrappers
+    kernels 6-9 copy data rows 16 bytes at a time, so their wrappers
     pad a cloud to a multiple of 4 lanes, with NaN coordinates (every
     compare with a NaN lane is false, and the boxes leave it out), radius
     0 and label big."""
@@ -303,6 +366,27 @@ def _launch(name, fn, *args):
 # wrappers
 # ---------------------------------------------------------------------------
 
+def _count(name, q_t8, d_t8, ndim, r2, levels2, tiles, plain):
+    """Kernels 6 (``levels2`` None: the one level ``r2``) and 7 (the three
+    ``levels2``) through ``dense_count`` -> (Nq,) or (Nq, 3) int32."""
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    tiles_ptr = _tiles_ptr(name, tiles, q_t8, n_q, n_d)
+    if not q_t8.is_cuda:
+        return plain()
+    if not _copy16(d_t8):
+        d_t8 = pad_lanes(d_t8, -(-n_d // 4) * 4, float("nan"))
+    boxes = _box_scratch(n_q, d_t8.shape[1], q_t8.device)
+    shape = (n_q,) if levels2 is None else (n_q, 3)
+    out = torch.empty(shape, dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, LIBRARY.load().dense_count, q_t8.data_ptr(), n_q,
+                d_t8.data_ptr(), d_t8.shape[1], ndim, float(r2),
+                0 if levels2 is None else levels2.data_ptr(),
+                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
+                stream_of(q_t8.device))
+    return out
+
+
 def tile_radius_count(q_t8, d_t8, r2: float, ndim: int = 3, *,
                       tiles=None) -> torch.Tensor:
     """Per query: data points with squared distance <= ``r2`` (self
@@ -313,25 +397,16 @@ def tile_radius_count(q_t8, d_t8, r2: float, ndim: int = 3, *,
     _check_clouds(name, q_t8, d_t8, ndim)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8},
            (torch.float32, torch.float32), q_t8.device)
-    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
-    tiles_ptr = _tiles_ptr(name, tiles, q_t8, n_q, n_d)
-    if not q_t8.is_cuda:
-        return count_plain(q_t8, d_t8, r2, ndim)
-    if not _copy16(d_t8):
-        d_t8 = pad_lanes(d_t8, -(-n_d // 4) * 4, float("nan"))
-    boxes = _box_scratch(n_q, d_t8.shape[1], q_t8.device)
-    out = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
-    with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().dense_count, q_t8.data_ptr(), n_q,
-                d_t8.data_ptr(), d_t8.shape[1], ndim, float(r2),
-                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
-                stream_of(q_t8.device))
-    return out
+    return _count(name, q_t8, d_t8, ndim, r2, None, tiles,
+                  lambda: count_plain(q_t8, d_t8, r2, ndim))
 
 
-def tile_radius_count3(q_t8, d_t8, levels2, ndim: int = 3) -> torch.Tensor:
-    """Counts at three squared radii ``levels2`` (3,) f32 -> (Nq, 3) int32.
-    Replaces ``pallas_kernels.tile_radius_count3``."""
+def tile_radius_count3(q_t8, d_t8, levels2, ndim: int = 3, *,
+                       tiles=None) -> torch.Tensor:
+    """Counts at three squared radii ``levels2`` (3,) f32 (in any order)
+    -> (Nq, 3) int32. Replaces ``pallas_kernels.tile_radius_count3``. On
+    the card, ``tiles`` (a (G, C) uint8 tensor, see
+    :func:`tile_decisions`) receives the kernel's decision per tile."""
     name = "tile_radius_count3"
     _check_clouds(name, q_t8, d_t8, ndim)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "levels2": levels2},
@@ -339,15 +414,8 @@ def tile_radius_count3(q_t8, d_t8, levels2, ndim: int = 3) -> torch.Tensor:
     if levels2.shape != (3,):
         raise ValueError(f"{name}: levels2 must be (3,), got "
                          f"{tuple(levels2.shape)}")
-    if not q_t8.is_cuda:
-        return count3_plain(q_t8, d_t8, levels2, ndim)
-    out = torch.zeros((q_t8.shape[1], 3), dtype=torch.int32,
-                      device=q_t8.device)
-    with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().dense_count3, q_t8.data_ptr(),
-                q_t8.shape[1], d_t8.data_ptr(), d_t8.shape[1], ndim,
-                levels2.data_ptr(), out.data_ptr(), stream_of(q_t8.device))
-    return out
+    return _count(name, q_t8, d_t8, ndim, 0.0, levels2, tiles,
+                  lambda: count3_plain(q_t8, d_t8, levels2, ndim))
 
 
 def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30,
@@ -415,25 +483,33 @@ def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,
     return out
 
 
-def tile_nearest(q_t8, d_t8, ndim: int = 3):
+def tile_nearest(q_t8, d_t8, ndim: int = 3, *, tiles=None):
     """Per query: the nearest data point -> (dist2 (Nq,) f32, data index
-    (Nq,) int32); the lowest index wins ties. Replaces
-    ``pallas_kernels.tile_nearest``."""
+    (Nq,) int32); the lowest index wins ties, and a query with no dist2
+    below inf gets (inf, 0). Replaces ``pallas_kernels.tile_nearest``. On
+    the card, ``tiles`` (a (G, C) uint8 tensor, see
+    :func:`tile_decisions`) receives the kernel's decision per tile."""
     name = "tile_nearest"
     _check_clouds(name, q_t8, d_t8, ndim)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8},
            (torch.float32, torch.float32), q_t8.device)
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    tiles_ptr = _tiles_ptr(name, tiles, q_t8, n_q, n_d)
     if not q_t8.is_cuda:
         return nearest_plain(q_t8, d_t8, ndim)
-    n_q = q_t8.shape[1]
-    # 64-bit (bits(dist2) << 32 | index) keys, all ones = no candidate
-    keys = torch.full((n_q,), -1, dtype=torch.int64, device=q_t8.device)
+    if not _copy16(d_t8):
+        # NaN lanes past the end never win, so no index moves
+        d_t8 = pad_lanes(d_t8, -(-n_d // 4) * 4, float("nan"))
+    boxes = _box_scratch(n_q, d_t8.shape[1], q_t8.device)
+    # 64-bit (bits(dist2) << 32 | index) merge keys, set by the kernel
+    keys = torch.empty(n_q, dtype=torch.int64, device=q_t8.device)
     dist = torch.empty(n_q, dtype=torch.float32, device=q_t8.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
     with torch.cuda.device(q_t8.device):
         _launch(name, LIBRARY.load().dense_nearest, q_t8.data_ptr(), n_q,
-                d_t8.data_ptr(), d_t8.shape[1], ndim, keys.data_ptr(),
-                dist.data_ptr(), idx.data_ptr(), stream_of(q_t8.device))
+                d_t8.data_ptr(), d_t8.shape[1], ndim, SENTINEL,
+                boxes.data_ptr(), keys.data_ptr(), dist.data_ptr(),
+                idx.data_ptr(), tiles_ptr, stream_of(q_t8.device))
     return dist, idx
 
 
