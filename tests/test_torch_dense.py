@@ -341,6 +341,106 @@ def test_min_label_qd_on_one_cloud_equals_min_label():
     assert all(v == 0 for v in TK.LAUNCHES.values())
 
 
+def _qd_cloud(kind, rng, ndim=6):
+    """(q_t8, d_t8, q_r2, d_r2, labels) of one kernel-12 call, cut from a
+    sorted-core-cloud stand-in: 12 clumps of 256 lanes (1 x 0.3 x 0.3 m,
+    tiny features) in pairs 0.2 m apart along x, the pairs 10 m apart,
+    then 512 non-core lanes at the sentinel; inside the clumps 15 % of the
+    lanes non-core (radius 0, label >= 2**30). The queries are a 512-lane
+    block (clumps 3 and 4), the data a 3300-lane window from lane 256 (the
+    sentinel tail in part, a ragged end). Across a pair's gap the tiles'
+    L is about 0.04, under the largest radius2 of 0.09: only the radii
+    decide them. ``query-radius`` zeroes the data's radii and
+    ``data-radius`` the queries', so one side's radius alone decides."""
+    ext = np.array([1.0, 0.3, 0.3] + [0.02] * (ndim - 3))
+    clumps = []
+    for k in range(12):
+        c = np.zeros(ndim)
+        c[0] = 10.0 * (k // 2) + (1.2 if k % 2 else 0.0)
+        clumps.append(c + rng.uniform(-0.5, 0.5, (256, ndim)) * ext)
+    pts = np.concatenate(clumps + [np.zeros((512, ndim))]).astype(np.float32)
+    n = len(pts)
+    core = (rng.uniform(size=n) >= 0.15) & (np.arange(n) < 3072)
+    t8 = prep_t8(_t(pts), _t(np.arange(n) < 3072), 1)
+    r2 = np.where(core, rng.uniform(0.01, 0.09, n), 0.0).astype(np.float32)
+    labels = np.where(core, rng.permutation(n) + 7,
+                      2 ** 30 + rng.integers(0, 3, n)).astype(np.int32)
+    q0, d0, nd = 768, 256, 3300
+    q_t8 = t8[:, q0:q0 + 512].contiguous()
+    d_t8 = t8[:, d0:d0 + nd].contiguous()
+    q_r2, d_r2 = r2[q0:q0 + 512].copy(), r2[d0:d0 + nd].copy()
+    if kind == "query-radius":
+        d_r2[:] = 0.0
+    elif kind == "data-radius":
+        q_r2[:] = 0.0
+    return q_t8, d_t8, _t(q_r2), _t(d_r2), _t(labels[d0:d0 + nd])
+
+
+@pytest.mark.parametrize("kind", ["clumped", "query-radius", "data-radius"])
+def test_min_label_qd_tiles_are_exact(kind):
+    """Kernel 12's tile decisions, mirrored (``tile_decisions`` with the
+    queries' ``radius2``, the data's ``d_radius2`` and ``labels``): no data
+    lane with label < big in a skipped tile lies within max(q_r2, d_r2) of
+    its query, and the minimum over the pair-loop tiles alone is
+    ``min_label_qd_plain`` bit for bit. Where one side's radius alone
+    decides, a mirror that took only the other side's would skip tiles
+    holding such pairs: the test sees both sides."""
+    from vilgod_tpu_torch.ops.kernels import _dist2_t8
+
+    rng = np.random.default_rng(["clumped", "query-radius",
+                                 "data-radius"].index(kind) + 41)
+    q_t8, d_t8, q_r2, d_r2, lab = _qd_cloud(kind, rng)
+    big, ndim = 2 ** 30, 6
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+
+    def hits_in_skipped(plan):
+        g_of = torch.empty(n_q, dtype=torch.long)
+        lanes = plan["q_lanes"]
+        rows = torch.arange(lanes.shape[0])[:, None].expand_as(lanes)
+        g_of[lanes[lanes >= 0]] = rows[lanes >= 0]
+        skip = plan["skip"][g_of][:, torch.arange(n_d) // TK.BLOCK]
+        return hit & skip, skip
+
+    plan = TK.tile_decisions(q_t8, d_t8, ndim, radius2=q_r2, d_radius2=d_r2,
+                             labels=lab, big=big)
+    joint = torch.maximum(q_r2[:, None], d_r2[None, :])
+    hit = (_dist2_t8(q_t8, d_t8, ndim) <= joint) & (lab < big)[None, :]
+    lost, skip = hits_in_skipped(plan)
+    assert not lost.any()
+    assert not plan["whole"].any()
+    rebuilt = torch.where(hit & ~skip, lab[None, :],
+                          torch.tensor(big, dtype=torch.int32)).amin(dim=1)
+    want = TK.min_label_qd_plain(q_t8, d_t8, q_r2, d_r2, lab, ndim, big)
+    np.testing.assert_array_equal(rebuilt.numpy(), want.numpy())
+    assert plan["codes"].shape == (4 * 2, -(-n_d // 256))
+    # the decisions have teeth: tiles skipped, tiles left, labels found
+    assert plan["skip"].any() and plan["pairs"].any()
+    assert plan["needed_pairs"] < n_q * n_d
+    assert (want < big).sum() > n_q // 2
+    if kind != "clumped":
+        # the deciding side's radii dropped: pairs within reach are lost
+        zero = torch.zeros_like(q_r2 if kind == "query-radius" else d_r2)
+        wrong = TK.tile_decisions(
+            q_t8, d_t8, ndim, labels=lab, big=big,
+            radius2=zero if kind == "query-radius" else q_r2,
+            d_radius2=d_r2 if kind == "query-radius" else zero)
+        assert hits_in_skipped(wrong)[0].any()
+
+
+def test_min_label_qd_tiles_record_needs_the_card():
+    """Kernel 12's tile record (``tiles=``) is written only on the card:
+    with a CPU cloud the wrapper raises; without it the CPU call is the
+    plain version."""
+    rng = np.random.default_rng(44)
+    q_t8, d_t8, q_r2, d_r2, lab = _qd_cloud("clumped", rng)
+    args = (q_t8, d_t8, q_r2, d_r2, lab, 6)
+    with pytest.raises(ValueError, match="tiles must be"):
+        TK.tile_min_label_qd(*args, tiles=torch.zeros((8, 12),
+                                                      dtype=torch.uint8))
+    np.testing.assert_array_equal(TK.tile_min_label_qd(*args).numpy(),
+                                  TK.min_label_qd_plain(*args, 2 ** 30).numpy())
+
+
 def test_dense_wrappers_count_no_cpu_launch():
     """On CPU tensors the wrappers take their plain versions: no launch is
     counted."""

@@ -97,7 +97,8 @@ def test_jax_checkpoint_loads_into_port(jax_state, tmp_path):
 def test_port_runs_without_jax(tmp_path):
     """vilgod_tpu_torch never imports jax: with jax unimportable the
     package (the CLIP models, the classification and box stages, tracking,
-    eval and the dense kernels included) imports and runs a stage; asking for cuda without a card raises."""
+    eval, the dense kernels, the run tool and the bench included) imports
+    and runs a stage; asking for cuda without a card raises."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -110,6 +111,8 @@ from vilgod_tpu_torch.models import clip, clip_wrapper, tokenizer, vit_kernels
 from vilgod_tpu_torch.pipeline import stages_boxes, stages_classify
 from vilgod_tpu_torch import eval, tracking
 from vilgod_tpu_torch.ops import boxes, dense_kernels
+from vilgod_tpu_torch.tools import bench, run
+from vilgod_tpu_torch import utils
 cap = {"max_points": 16384, "max_ng_points": 8192, "max_cluster_input": 8192}
 cfg = waymo_config(capacity=cap, pipeline_active=["mask_ground_points"])
 seq = SyntheticDataset(n_sequences=1, n_frames=4, seed=12, n_ground=3000,

@@ -3,7 +3,7 @@
 //   dense_count      <- tile_radius_count   (pallas_kernels.py:93)
 //                       and tile_radius_count3 (pallas_kernels.py:136)
 //   dense_min_label  <- tile_min_label      (pallas_kernels.py:187)
-//   dense_min_label_qd <- tile_min_label_qd (pallas_kernels.py:241)
+//                       and tile_min_label_qd (pallas_kernels.py:241)
 //   dense_nearest    <- tile_nearest        (pallas_kernels.py:531)
 //
 // What they compute. Clouds are (8, N) float32, row-major (row c holds
@@ -19,8 +19,8 @@
 //   count3    the same at three squared levels (in any order) -> (N, 3);
 //   min_label per query, the minimum label over data points with
 //             dist2 <= max(r2_q, r2_d), else big (mutual-reachability
-//             linkage): dense_min_label over one cloud, dense_min_label_qd
-//             a query block against a different data window;
+//             linkage): kernel 8 over one cloud, kernel 12 a query
+//             block against a different data window;
 //   nearest   per query, the least dist2 and the FIRST data index that
 //             reaches it (Pallas: argmin within a tile, strict < across);
 //             (inf, 0) where no dist2 is below inf (a NaN lane).
@@ -31,16 +31,18 @@
 // about 10 FP32 issue slots at ndim 3, so the way under the all-pairs
 // time is to leave pairs out, exactly.
 //
-// Kernels 6-9 (dense_count at one level and at three, dense_min_label,
-// dense_nearest) run on the pair engine of span_engine.cuh (2 queries per
-// thread, 16-byte broadcast loads of 4 data points, a cp.async double
-// buffer) over the one span [0, nd), and decide whole tiles by bounding
-// boxes first:
+// Kernels 6-9 and 12 (dense_count at one level and at three,
+// dense_min_label over one cloud and over two, dense_nearest) run on the
+// pair engine of span_engine.cuh (2 queries per thread, 16-byte broadcast
+// loads of 4 data points, a cp.async double buffer) over the one span
+// [0, nd), and decide whole tiles by bounding boxes first:
 //  - box_kernel, launched first on the same stream, writes per warp query
 //    group (64 lanes) and per 256-lane data chunk the per-coordinate min
-//    and max over its lanes that are numbers in every coordinate (kernel
-//    8's data boxes also only over lanes with label < big, which can
-//    never lower a minimum), their largest radius2 and their count.
+//    and max over its lanes that are numbers in every coordinate (the
+//    min-label data boxes also only over lanes with label < big, which
+//    can never lower a minimum), their largest radius2 and their count.
+//    Kernel 8 passes its one cloud as both sides, kernel 12 a query block
+//    with its radii and a data window with its radii and labels.
 //  - The sentinel point (kernel 9's data). Every lane at the sentinel in
 //    all ndim coordinates is the same point S. The border attach's data
 //    holds its non-core lanes there, interleaved in the original order: a
@@ -58,8 +60,10 @@
 //    a number where U <= l_k. A tile is skipped where no level adds
 //    (kernel 6: L > r2), taken whole where every level is decided and one
 //    adds (sentinel x sentinel tiles land here), and runs the pair loop,
-//    which counts every level and adds nothing whole, otherwise. Kernel 8
-//    skips a tile where L > max(the group's largest radius2, the chunk's).
+//    which counts every level and adds nothing whole, otherwise. Kernels 8
+//    and 12 skip a tile where L > max(the group's largest radius2, the
+//    chunk's): every pair's max(q_r2, d_r2) is at most that, so no pair
+//    of a skipped tile is within it.
 //  - Kernel 9's threshold. nearest_bound_kernel gives each query group
 //    T_g: per query lane that is a number the least U over the chunk boxes
 //    (and S where a chunk holds it), each lane a box of one point, then
@@ -90,16 +94,9 @@
 //    lanes (never with the sentinel: a sentinel meets a sentinel at
 //    dist2 0).
 //
-// Kernel 12 (min_label_qd) is the first design, and its helpers (grid_for
-// with a fixed 132-SM target, load_query_or0, stage, dist2, split_range)
-// serve only it: one thread per query, 256 queries per block, the data
-// streamed through shared memory 256 points at a time and split over
-// gridDim.y, merged by atomicMin. Ragged N is masked on both axes.
-//
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). The
-// wrapper allocates the outputs and the box scratch; dense_min_label_qd
-// takes its output filled with big.
+// wrapper allocates the outputs and the box scratch.
 
 #include <stdint.h>
 
@@ -107,7 +104,7 @@
 
 namespace {
 
-// ---- kernels 6-9: the engine with exact tile decisions by boxes ----
+// ---- kernels 6-9 and 12: the engine with exact tile decisions by boxes ----
 
 constexpr int kWarps = kThreads / 32;  // query groups per block
 // a box: NDIM minima at [0, 6), maxima at [kMax, kMax + 6), the largest
@@ -358,10 +355,14 @@ count_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
   }
 }
 
+// Kernels 8 and 12: per query lane of q (nq lanes, radius2 q_r2), the least
+// label over the data lanes of d (nd lanes, radius2 d_r2, labels) within
+// max(q_r2, d_r2), else big. Kernel 8 is the call with one cloud as both.
 template <int NDIM>
 __global__ void __launch_bounds__(kThreads)
-min_label_kernel(const float* __restrict__ pts, int n,
-                 const float* __restrict__ radius2,
+min_label_kernel(const float* __restrict__ q, int nq,
+                 const float* __restrict__ q_r2, const float* __restrict__ d,
+                 int nd, const float* __restrict__ d_r2,
                  const int* __restrict__ labels,
                  const float* __restrict__ qbox,
                  const float* __restrict__ dbox, int big,
@@ -384,20 +385,24 @@ min_label_kernel(const float* __restrict__ pts, int n,
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
     const int qi = q0 + i * kThreads;
-    load_query_masked<NDIM>(pts, n, qi, qv[i]);
-    qr2[i] = qi < n ? radius2[qi] : 0.f;
+    // the radius before the coordinates: in the other order nvcc allots
+    // the pair loop 61 registers in place of 72 at ndim 5 and kernel 8
+    // ran 10 % slower (PERF.md, kernel 8); chip_smoke.py's phase 1 fails
+    // a build that allots fewer than 72
+    qr2[i] = qi < nq ? q_r2[qi] : 0.f;
+    load_query_masked<NDIM>(q, nq, qi, qv[i]);
     best[i] = big;
   }
   const int c = blockIdx.y;
-  const Span sp{0, n, 0, c, c + pairs};
+  const Span sp{0, nd, 0, c, c + pairs};
   scan_span<NDIM, kRows>(
-      pts, n, radius2, labels, sp, buf, [&](const float* cur, int ng, int) {
+      d, nd, d_r2, labels, sp, buf, [&](const float* cur, int ng, int) {
         if (code == kPairs) min_label_groups<NDIM>(cur, ng, qv, qr2, best);
       });
 #pragma unroll
   for (int i = 0; i < kQpt; ++i) {
     const int qi = q0 + i * kThreads;
-    if (qi >= n) continue;
+    if (qi >= nq) continue;
     if (gridDim.y == 1)
       out[qi] = best[i];
     else if (best[i] < big)
@@ -522,103 +527,7 @@ nearest_kernel(const float* __restrict__ q, int nq,
   }
 }
 
-// ---- kernel 12: one query per thread ----
-
-// grid_for aims for this many blocks in all: four per SM of an H100 (132
-// SMs, fixed here; the engine's kernels take their grids from the sizes)
-constexpr int kTargetBlocks = 4 * 132;
-
-template <int NDIM>
-__device__ __forceinline__ void load_query_or0(const float* __restrict__ q,
-                                               int nq, int qi,
-                                               float (&qv)[NDIM]) {
-#pragma unroll
-  for (int c = 0; c < NDIM; ++c) qv[c] = qi < nq ? q[(size_t)c * nq + qi] : 0.f;
-}
-
-// Stage data points [j, j + kBlock) (those below nd) into sd.
-template <int NDIM>
-__device__ __forceinline__ void stage(const float* __restrict__ d, int nd,
-                                      int j, float* sd) {
-  const int jj = j + threadIdx.x;
-  if (jj < nd) {
-#pragma unroll
-    for (int c = 0; c < NDIM; ++c)
-      sd[c * kBlock + threadIdx.x] = d[(size_t)c * nd + jj];
-  }
-}
-
-template <int NDIM>
-__device__ __forceinline__ float dist2(const float (&qv)[NDIM],
-                                       const float* sd, int t) {
-  float diff = __fsub_rn(qv[0], sd[t]);
-  float acc = __fmul_rn(diff, diff);
-#pragma unroll
-  for (int c = 1; c < NDIM; ++c) {
-    diff = __fsub_rn(qv[c], sd[c * kBlock + t]);
-    acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-  }
-  return acc;
-}
-
-// This block's data range [j0, j1): split blockIdx.y of gridDim.y, each
-// split a multiple of kBlock wide.
-__device__ __forceinline__ void split_range(int nd, int chunk, int& j0,
-                                            int& j1) {
-  j0 = blockIdx.y * chunk;
-  j1 = min(nd, j0 + chunk);
-}
-
-template <int NDIM>
-__global__ void __launch_bounds__(kBlock)
-min_label_qd_kernel(const float* __restrict__ q, int nq, const float* __restrict__ d,
-                 int nd, int chunk, const float* __restrict__ q_r2,
-                 const float* __restrict__ d_r2, const int* __restrict__ labels,
-                 int big, int* __restrict__ out) {
-  __shared__ float sd[NDIM * kBlock];
-  __shared__ float sr2[kBlock];
-  __shared__ int slab[kBlock];
-  const int qi = blockIdx.x * kBlock + threadIdx.x;
-  int j0, j1;
-  split_range(nd, chunk, j0, j1);
-  float qv[NDIM];
-  load_query_or0<NDIM>(q, nq, qi, qv);
-  const float qr2 = qi < nq ? q_r2[qi] : 0.f;
-  int best = big;
-  for (int j = j0; j < j1; j += kBlock) {
-    stage<NDIM>(d, nd, j, sd);
-    if (j + threadIdx.x < nd) {
-      sr2[threadIdx.x] = d_r2[j + threadIdx.x];
-      slab[threadIdx.x] = labels[j + threadIdx.x];
-    }
-    __syncthreads();
-    const int tn = min(kBlock, j1 - j);
-#pragma unroll 8
-    for (int t = 0; t < tn; ++t) {
-      // max-radius joint: HDBSCAN mutual-reachability linkage
-      const float joint = fmaxf(qr2, sr2[t]);
-      if (dist2<NDIM>(qv, sd, t) <= joint) best = min(best, slab[t]);
-    }
-    __syncthreads();
-  }
-  if (qi < nq && best < big) atomicMin(out + qi, best);
-}
-
-// (grid, chunk): query blocks on x, data splits on y, every split a
-// multiple of kBlock wide; at least one split, at most one per data block.
-// False for an empty side.
-inline bool grid_for(int nq, int nd, dim3& grid, int& chunk) {
-  if (nq <= 0 || nd <= 0) return false;
-  const int qb = (nq + kBlock - 1) / kBlock;
-  const int db = (nd + kBlock - 1) / kBlock;
-  int splits = (kTargetBlocks + qb - 1) / qb;
-  splits = splits > db ? db : splits;
-  chunk = ((db + splits - 1) / splits) * kBlock;
-  grid = dim3(qb, (nd + chunk - 1) / chunk);
-  return true;
-}
-
-// The box pass of kernels 6-9 over both clouds: boxes holds the query
+// The box pass of kernels 6-9 and 12 over both clouds: boxes holds the query
 // groups' boxes, then the data chunks'.
 struct Boxes {
   int q_blocks, d_chunks;
@@ -663,38 +572,28 @@ int dense_count(const float* q, int nq, const float* d, int nd, int ndim,
   });
 }
 
-// boxes: 5 ceil(n / 256) * 16 floats of scratch; out (n,) int32; tiles
-// null, or (4 ceil(n / 256), ceil(n / 256)) bytes for the decisions. n a
-// multiple of 4 and pts', radius2's and labels' rows 16-byte aligned.
-int dense_min_label(const float* pts, int n, const float* radius2,
-                    const int* labels, int ndim, int big, float* boxes,
-                    int* out, unsigned char* tiles, void* stream) {
+// Kernels 8 and 12: q (nq lanes) with radius2 q_r2 against d (nd lanes)
+// with radius2 d_r2 and labels (kernel 8 passes its one cloud as both).
+// boxes: (4 ceil(nq / 256) + ceil(nd / 256)) * 16 floats of scratch; out
+// (nq,) int32; tiles null, or (4 ceil(nq / 256), ceil(nd / 256)) bytes for
+// the decisions. nd a multiple of 4 and d's, d_r2's and labels' rows
+// 16-byte aligned.
+int dense_min_label(const float* q, int nq, const float* q_r2, const float* d,
+                    int nd, const float* d_r2, const int* labels, int ndim,
+                    int big, float* boxes, int* out, unsigned char* tiles,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || n % 4) return (int)cudaErrorInvalidValue;
-  const Boxes bx(n, n, boxes);
+  if (nq <= 0 || nd <= 0 || nd % 4) return (int)cudaErrorInvalidValue;
+  const Boxes bx(nq, nd, boxes);
   const dim3 grid(bx.q_blocks, bx.d_chunks);
   return dispatch_ndim(ndim, [&](auto nd_) {
     constexpr int N = decltype(nd_)::value;
     box_kernel<N><<<bx.blocks(), kThreads, 0, st>>>(
-        pts, n, radius2, bx.q_blocks, pts, n, radius2, labels, big,
-        bx.d_chunks, NAN, bx.qbox, bx.dbox);
-    if (grid.y > 1) fill(out, n, big, st);
+        q, nq, q_r2, bx.q_blocks, d, nd, d_r2, labels, big, bx.d_chunks, NAN,
+        bx.qbox, bx.dbox);
+    if (grid.y > 1) fill(out, nq, big, st);
     min_label_kernel<N><<<grid, kThreads, 0, st>>>(
-        pts, n, radius2, labels, bx.qbox, bx.dbox, big, out, tiles);
-  });
-}
-
-// out (nq,) int32, filled with big by the caller; labels (nd,) of the data
-int dense_min_label_qd(const float* q, int nq, const float* d, int nd,
-                       const float* q_r2, const float* d_r2, const int* labels,
-                       int ndim, int big, int* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int chunk;
-  dim3 grid;
-  if (!grid_for(nq, nd, grid, chunk)) return (int)cudaErrorInvalidValue;
-  return dispatch_ndim(ndim, [&](auto nd_) {
-    min_label_qd_kernel<decltype(nd_)::value><<<grid, kBlock, 0, st>>>(
-        q, nq, d, nd, chunk, q_r2, d_r2, labels, big, out);
+        q, nq, q_r2, d, nd, d_r2, labels, bx.qbox, bx.dbox, big, out, tiles);
   });
 }
 

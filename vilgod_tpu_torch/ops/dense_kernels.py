@@ -18,10 +18,12 @@ tensors it launches its kernel from ``csrc/dense.cu`` (built by
 ``utils/cuda_build.py`` at first use) or raises; it never falls back.
 ``LAUNCHES`` counts kernel launches per wrapper.
 
-Kernels 6-9 (``tile_radius_count``, ``tile_radius_count3``,
-``tile_min_label``, ``tile_nearest``) decide whole (warp query group, data
-chunk) tiles by bounding boxes before the pair loop: skipped, taken whole
-(the counts), or left to the pair loop, each decision exact.
+Kernels 6-9 and 12 (``tile_radius_count``, ``tile_radius_count3``,
+``tile_min_label``, ``tile_nearest``, ``tile_min_label_qd``) decide whole
+(warp query group, data chunk) tiles by bounding boxes before the pair
+loop: skipped, taken whole (the counts), or left to the pair loop, each
+decision exact. Kernels 8 and 12 share one CUDA kernel: kernel 8 is its
+call with one cloud on both sides.
 :func:`tile_decisions` mirrors them in torch on the same boxes, for the
 tests and for ``chip_smoke.py``'s needed-pair bounds; on the card each
 kernel writes its own decisions where asked (``tiles=``), so that the
@@ -118,7 +120,7 @@ def nearest_plain(q_t8, d_t8, ndim):
 
 
 # ---------------------------------------------------------------------------
-# the tile decisions of kernels 6-9, mirrored
+# the tile decisions of kernels 6-9 and 12, mirrored
 # ---------------------------------------------------------------------------
 
 # a CUDA block holds 256 queries, 2 per thread at stride 128: warp w's
@@ -208,19 +210,23 @@ def nearest_thresholds(q_t8, ndim, q_lanes, q_ok, d_lo, d_hi, s_box=None):
 
 def tile_decisions(q_t8, d_t8, ndim, r2=None, radius2=None, labels=None,
                    big: int = 2 ** 30, levels2=None,
-                   nearest: bool = False) -> dict:
-    """The decisions the box pre-pass of kernels 6-9 makes, per (warp
-    query group, data chunk) tile, in torch on the same boxes and bounds.
+                   nearest: bool = False, d_radius2=None) -> dict:
+    """The decisions the box pre-pass of kernels 6-9 and 12 makes, per
+    (warp query group, data chunk) tile, in torch on the same boxes and
+    bounds.
 
     Kernels 6 (``r2``) and 7 (``levels2``, any order): per level k a tile
     adds nothing where L > l_k and the chunk's lanes in ``d_count`` to each
     query lane that is a number where U <= l_k; it is ``skip`` where no
     level adds, ``whole`` where every level is decided and one adds
     (``whole_levels`` (G, C, levels) says which add), else ``pairs`` (the
-    pair loop, which counts every level). Kernel 8 (``radius2`` and
-    ``labels`` of the one cloud, ``d_t8`` is ``q_t8``): its data boxes keep
-    only lanes with label < big, and a tile is skipped where L > max(the
-    group's largest radius2, the chunk's), else pairs. Kernel 9
+    pair loop, which counts every level). Kernels 8 and 12 (``radius2``
+    of the queries, ``d_radius2`` and ``labels`` of the data; kernel 8
+    passes one cloud as ``q_t8`` and ``d_t8`` and leaves ``d_radius2``
+    None, the data's radii being ``radius2``): the data boxes keep only
+    lanes with label < big, and a tile is skipped where L > max(the
+    group's largest query radius2, the chunk's largest data radius2),
+    else pairs. Kernel 9
     (``nearest``): data lanes at the sentinel S in every coordinate stay
     out of the chunk boxes (``d_sent`` (C,) counts them); each group gets
     the bound ``t`` (G,) of :func:`nearest_thresholds`, and a tile is
@@ -246,7 +252,9 @@ def tile_decisions(q_t8, d_t8, ndim, r2=None, radius2=None, labels=None,
         d_ok = d_ok & ~d_s
         out["d_sent"] = (d_s[d_lanes.clamp(min=0)] & (d_lanes >= 0)).sum(dim=1)
     q_lo, q_hi, q_r2, _ = _boxes(q_t8, ndim, q_lanes, q_ok, radius2)
-    d_lo, d_hi, d_r2, d_count = _boxes(d_t8, ndim, d_lanes, d_ok, radius2)
+    d_lo, d_hi, d_r2, d_count = _boxes(
+        d_t8, ndim, d_lanes, d_ok,
+        radius2 if d_radius2 is None else d_radius2)
     low, up = tile_bounds(q_lo, q_hi, d_lo, d_hi)
     whole = None
     if r2 is not None or levels2 is not None:
@@ -290,21 +298,20 @@ LIBRARY = CudaLibrary("dense.cu", {
     # q, nq, d, nd, ndim, r2, levels2 (null: the one level r2), boxes, out,
     # tiles, stream
     "dense_count": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P, _P),
-    # pts, n, radius2, labels, ndim, big, boxes, out, tiles, stream
-    "dense_min_label": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
-    # q, nq, d, nd, q_r2, d_r2, labels, ndim, big, out, stream
-    "dense_min_label_qd": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P),
+    # q, nq, q_r2, d, nd, d_r2, labels, ndim, big, boxes, out, tiles,
+    # stream (kernel 8: one cloud as q and d)
+    "dense_min_label": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
     # q, nq, d, nd, ndim, sentinel, boxes, keys, dist, idx, tiles, stream
     "dense_nearest": (_P, _I, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P),
 }, extra_flags=("-fmad=false",))
 
-# kernels 6-9: a box is 16 floats of the wrapper's scratch
+# kernels 6-9 and 12: a box is 16 floats of the wrapper's scratch
 _BOX_FLOATS = 16
 
 
 def pad_lanes(t, n: int, value):
     """``t`` (..., N) widened to ``n`` lanes, the new ones set to ``value``:
-    kernels 6-9 copy data rows 16 bytes at a time, so their wrappers
+    kernels 6-9 and 12 copy data rows 16 bytes at a time, so their wrappers
     pad a cloud to a multiple of 4 lanes, with NaN coordinates (every
     compare with a NaN lane is false, and the boxes leave it out), radius
     0 and label big."""
@@ -418,6 +425,26 @@ def tile_radius_count3(q_t8, d_t8, levels2, ndim: int = 3, *,
                   lambda: count3_plain(q_t8, d_t8, levels2, ndim))
 
 
+def _min_label(name, q_t8, q_r2, d_t8, d_r2, labels, ndim, big, tiles_ptr):
+    """Kernels 8 and 12 through ``dense_min_label`` on CUDA clouds ->
+    (Nq,) int32; data padded with NaN lanes (radius 0, label big) to a
+    multiple of 4 where its rows cannot be staged by 16-byte copies."""
+    n_q, n_d = q_t8.shape[1], d_t8.shape[1]
+    if not _copy16(d_t8, d_r2, labels):
+        n4 = -(-n_d // 4) * 4
+        d_t8 = pad_lanes(d_t8, n4, float("nan"))
+        d_r2, labels = pad_lanes(d_r2, n4, 0.0), pad_lanes(labels, n4, big)
+    boxes = _box_scratch(n_q, d_t8.shape[1], q_t8.device)
+    out = torch.empty(n_q, dtype=torch.int32, device=q_t8.device)
+    with torch.cuda.device(q_t8.device):
+        _launch(name, LIBRARY.load().dense_min_label, q_t8.data_ptr(), n_q,
+                q_r2.data_ptr(), d_t8.data_ptr(), d_t8.shape[1],
+                d_r2.data_ptr(), labels.data_ptr(), ndim, int(big),
+                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
+                stream_of(q_t8.device))
+    return out
+
+
 def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30,
                    *, tiles=None):
     """Per point: the minimum label over points within max(radius2_q,
@@ -436,24 +463,12 @@ def tile_min_label(pts_t8, radius2, labels, ndim: int, big: int = 2 ** 30,
     tiles_ptr = _tiles_ptr(name, tiles, pts_t8, n, n)
     if not pts_t8.is_cuda:
         return min_label_plain(pts_t8, radius2, labels, ndim, big)
-    if not _copy16(pts_t8, radius2, labels):
-        n4 = -(-n // 4) * 4
-        pts_t8 = pad_lanes(pts_t8, n4, float("nan"))
-        radius2, labels = pad_lanes(radius2, n4, 0.0), pad_lanes(labels, n4,
-                                                                 big)
-    n4 = pts_t8.shape[1]
-    boxes = _box_scratch(n4, n4, pts_t8.device)
-    out = torch.empty(n4, dtype=torch.int32, device=pts_t8.device)
-    with torch.cuda.device(pts_t8.device):
-        _launch(name, LIBRARY.load().dense_min_label, pts_t8.data_ptr(), n4,
-                radius2.data_ptr(), labels.data_ptr(), ndim, int(big),
-                boxes.data_ptr(), out.data_ptr(), tiles_ptr,
-                stream_of(pts_t8.device))
-    return out[:n]
+    return _min_label(name, pts_t8, radius2, pts_t8, radius2, labels, ndim,
+                      big, tiles_ptr)
 
 
 def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,
-                      big: int = 2 ** 30):
+                      big: int = 2 ** 30, *, tiles=None):
     """Per query: the minimum label over DATA points within max(q_r2,
     d_r2), else ``big`` -> (Nq,) int32; query and data are different clouds
     (a query block and a data window of the sorted core cloud), ``labels``
@@ -462,7 +477,9 @@ def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,
     ``pallas_kernels.tile_min_label_qd``, which returns the same values as
     f32 (labels carried as f32, exact below 2**24) and covers only query
     counts <= 512 or multiples of 512 and data counts in multiples of 2048;
-    this wrapper takes any sizes."""
+    this wrapper takes any sizes. On the card, ``tiles`` (a (G, C) uint8
+    tensor, see :func:`tile_decisions`) receives the kernel's decision per
+    tile."""
     name = "tile_min_label_qd"
     _check_clouds(name, q_t8, d_t8, ndim)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "q_r2": q_r2, "d_r2": d_r2,
@@ -472,15 +489,11 @@ def tile_min_label_qd(q_t8, d_t8, q_r2, d_r2, labels, ndim: int,
     if q_r2.shape != (n_q,) or d_r2.shape != (n_d,) or labels.shape != (n_d,):
         raise ValueError(f"{name}: q_r2 must be ({n_q},), d_r2 and labels "
                          f"({n_d},)")
+    tiles_ptr = _tiles_ptr(name, tiles, q_t8, n_q, n_d)
     if not q_t8.is_cuda:
         return min_label_qd_plain(q_t8, d_t8, q_r2, d_r2, labels, ndim, big)
-    out = torch.full((n_q,), big, dtype=torch.int32, device=q_t8.device)
-    with torch.cuda.device(q_t8.device):
-        _launch(name, LIBRARY.load().dense_min_label_qd, q_t8.data_ptr(), n_q,
-                d_t8.data_ptr(), n_d, q_r2.data_ptr(), d_r2.data_ptr(),
-                labels.data_ptr(), ndim, int(big), out.data_ptr(),
-                stream_of(q_t8.device))
-    return out
+    return _min_label(name, q_t8, q_r2, d_t8, d_r2, labels, ndim, big,
+                      tiles_ptr)
 
 
 def tile_nearest(q_t8, d_t8, ndim: int = 3, *, tiles=None):

@@ -4,11 +4,14 @@ port of ``vilgod_tpu/pipeline/runner.py``.
 The pipeline is an ordered list of ``{name, args}`` entries in the config
 and ``pipeline_active`` selects and orders execution; stage names resolve
 through :data:`STAGE_REGISTRY`. Per-sequence stage outputs checkpoint to
-one ``.npz`` in the JAX package's schema (stage-level resume). Everything
-runs on ``cuda`` unless the caller passes another ``device``.
+one ``.npz`` in the JAX package's schema (stage-level resume). With
+``profile_dir`` in the config each sequence's run writes a trace there
+(:meth:`ZeroShotDetector.process`). Everything runs on ``cuda`` unless the
+caller passes another ``device``.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from pathlib import Path
@@ -67,9 +70,36 @@ class ZeroShotDetector:
         self.state.prefetch()
         self.detection_3d_result_list: list[dict] = []
 
-    def process(self) -> list[dict]:
+    def process(self, spans: bool = False) -> list[dict]:
         """Run the active pipeline; returns the per-frame detection dicts of
-        ``evaluate_sequence`` (empty when that stage is not active)."""
+        ``evaluate_sequence`` (empty when that stage is not active). With
+        ``cfg["profile_dir"]`` set, the run goes under ``torch.profiler``
+        (the CPU, and the card's kernels on CUDA), each stage in a
+        ``record_function`` span named after it, and the Chrome trace is
+        written to ``<profile_dir>/<sequence>.trace.json``. ``spans`` puts
+        the stages in those spans for a profiler the caller runs."""
+        profile_dir = self.cfg.get("profile_dir")
+        if not profile_dir:
+            self._process_stages(trace=spans)
+        else:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                self._process_stages(trace=True)
+            path = Path(profile_dir) / f"{self.name}.trace.json"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(path))
+            log.info("Trace written to %s", path)
+        if self.state.detection_3d_result_list is not None:
+            self.detection_3d_result_list = self.state.detection_3d_result_list
+        return self.detection_3d_result_list
+
+    def _process_stages(self, trace: bool):
+        """The active stages in order; with ``trace``, each in a
+        ``record_function`` span named after it (only then: a span also
+        shows in the card's trace, as a device range over the stage)."""
         pipeline = {p["name"]: p.get("args", {})
                     for p in self.cfg.get("pipeline", [])}
         for task_name in self.cfg.get("pipeline_active", []):
@@ -82,19 +112,19 @@ class ZeroShotDetector:
                 args["clip_model"] = self.clip_model
             t0 = time.perf_counter()
             before = self.state.done.get(task_name, False)
-            fn(self.state, self.cfg, **args)
-            if self.device.type == "cuda":
-                # wall time per stage includes its device work
-                torch.cuda.synchronize(self.device)
+            span = (torch.profiler.record_function(task_name) if trace
+                    else contextlib.nullcontext())
+            with span:
+                fn(self.state, self.cfg, **args)
+                if self.device.type == "cuda":
+                    # wall time per stage includes its device work
+                    torch.cuda.synchronize(self.device)
             self.stage_times[task_name] = time.perf_counter() - t0
             log.info("[%s] %s: %.2fs", self.name, task_name,
                      self.stage_times[task_name])
             ran = self.state.done.get(task_name, False) and not before
             if ran and self.cache_path is not None:
                 self.state.save(self.cache_path)
-        if self.state.detection_3d_result_list is not None:
-            self.detection_3d_result_list = self.state.detection_3d_result_list
-        return self.detection_3d_result_list
 
 
 def run_sequences(dataset, cfg, clip_model=None, cache_dir=None,

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on the card."""
+"""The port's tools: the run tool (``run``), the GPU bench (``bench``) and
+measurement scripts run on the card."""
