@@ -51,6 +51,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    caps, all nine stages with a random-weight ViT-B/16) with a results
    directory and ``profile_dir``: its ``ap_results.json`` must be written
    and its trace must hold one span per stage, all nine;
+3d. the real-data path: phase 3's scene written to a Waymo OpenPCDet
+   layout by the port's ``export_pseudo_dataset`` (its GT as the labels,
+   its object indices as track ids; bytes and seconds printed) and read
+   back (timed), then ``tools.run``'s ``main`` on the card with
+   ``preprocessor=waymo paths.data=... split=pseudo`` at phase 3's caps,
+   nine stages and ViT-B/16 bf16 random-weight tower, its launch counts
+   zeroed just before and read just after (kernels 1-4 each launched,
+   ``fused_attention_proj`` as often as in phase 3). Its ground masks,
+   labels, detections, track ids and classes must equal phase 3's, its
+   boxes within 1e-4 m and scores within 1e-4 (the frames are the same
+   after ``set_frame``'s 5 mm quantisation); ``tools.evaluate``'s ``main``
+   with ``--cluster-eval`` re-scores its result files to its
+   ``ap_results.json`` within 1e-6; its detections written by
+   ``export_pseudo_labels`` read back with the same boxes. One line with
+   the stage seconds, frames/s, export and load seconds and the APs
+   against both GTs, beside the card's name and power limit;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
    banded kernels also on a forced full-width (overflow) call each, small
@@ -83,7 +99,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that splits
    ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
    core and output GEMM (ms, TFLOP/s, GB/s); kernel, plain, torch-composite
-   and bound times;
+   and bound times; then two public ops no stage calls, on the card and on
+   the CPU: ``entropy_scores_window`` of one main-path non-ground frame
+   against the entropy stage's 15-frame window (each window frame's count
+   equal, scores within 1e-6, the kernel it launched reported) and
+   ``knn`` with k = 8 of that frame against the next (indices equal,
+   squared distances bitwise equal);
 5. card against CPU, second half: the same 4 frames by the port on the CPU
    (the plain versions): ground mask, labels, det_n, det_static and
    det_valid equal, det_center within 1e-4 m, plane_ref within 1e-4, every
@@ -100,6 +121,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import logging
 import os
 import re
 import shutil
@@ -124,6 +146,10 @@ RUN_TOOL_ARGS = ["preprocessor=synthetic", "synthetic.n_frames=8"]
 # the 4-frame card-vs-CPU check of stages 1-4 and the classification
 CHECK_STAGES = GEOMETRY + ["classification"]
 EVAL_RANGE = (-50.0, -20.0, 50.0, 20.0)
+# phase 4's entropy_scores_window: the entropy stage's 15-frame window of
+# the main path and the query frame's place in it
+ENTROPY_WINDOW = 15
+ENTROPY_SEEK = 7
 CHECK_FRAMES = 4
 # the card-vs-CPU tower: narrow, bf16, 64-wide heads (the fused path)
 CHECK_CLIP = dict(patch_size=32, vision_width=128, vision_layers=2,
@@ -1214,6 +1240,272 @@ def check_run_tool(out):
             "span_s": {k: spans[k] for k in STAGES}}
 
 
+class StageSeconds(logging.Handler):
+    """Keeps the run tool's logged ``Stage seconds: {...}``."""
+
+    PREFIX = "Stage seconds: "
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = None
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(self.PREFIX):
+            self.seconds = json.loads(msg[len(self.PREFIX):])
+
+
+def export_parity_scene(ds, root):
+    """Phase 3d, export: the scene's frames and poses into a Waymo
+    OpenPCDet layout under ``root`` by the port's ``export_pseudo_dataset``,
+    its GT as the labels and its object indices as track ids. Returns
+    (bytes written, seconds)."""
+    import numpy as np
+    from vilgod_tpu_torch.data import export_pseudo_dataset
+
+    seq = ds.sequence("synth_0")
+    labels, tids = [], []
+    for f in range(seq.sequence_length):
+        gt = seq.get_annos(f)
+        labels.append({"boxes_lidar": gt["gt_boxes_lidar"],
+                       "name": gt["gt_names"],
+                       "score": np.ones(len(gt["gt_names"]), np.float32),
+                       "moving": gt["moving"]})
+        tids.append(np.arange(len(gt["gt_names"])))
+    t0 = time.perf_counter()
+    export_pseudo_dataset(ds, {"synth_0": labels}, root,
+                          track_ids_by_sequence={"synth_0": tids})
+    seconds = time.perf_counter() - t0
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file()), seconds
+
+
+def check_real_data_run(a, b, results_a, results_b):
+    """Phase 3d against phase 3 on the same card: state ``b`` and results
+    ``results_b`` of the run from disk, ``a`` and ``results_a`` of the run
+    on the generator's frames. Integers equal, boxes within 1e-4 m, scores
+    within 1e-4. Returns the largest box and score differences."""
+    import numpy as np
+
+    for field in ("ground_mask", "labels", "det_n", "det_valid", "det_tid",
+                  "det_cls", "det_static", "det_static_track"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"real-data run != main path in {field}")
+    if len(results_a) != len(results_b):
+        raise AssertionError(f"real-data run: {len(results_b)} frames, "
+                             f"main path {len(results_a)}")
+    box_err = score_err = 0.0
+    for f, (ra, rb) in enumerate(zip(results_a, results_b)):
+        if not (np.array_equal(ra["name"], rb["name"])
+                and np.array_equal(ra["moving"], rb["moving"])):
+            raise AssertionError(f"real-data run != main path in frame {f}'s "
+                                 f"names or moving flags")
+        if len(ra["name"]):
+            box_err = max(box_err, float(np.abs(
+                np.asarray(ra["boxes_lidar"]) - rb["boxes_lidar"]).max()))
+            score_err = max(score_err, float(np.abs(
+                np.asarray(ra["score"]) - rb["score"]).max()))
+    if box_err > 1e-4 or score_err > 1e-4:
+        raise AssertionError(f"real-data run != main path: boxes {box_err} m, "
+                             f"scores {score_err}")
+    return box_err, score_err
+
+
+def rescore(results_dir, root):
+    """Phase 3d, re-score: the port's evaluate CLI with ``--cluster-eval``
+    on the run's result files. Returns (APs, its per-sequence line)."""
+    import contextlib
+    import io
+    from vilgod_tpu_torch.tools import evaluate as evaluate_tool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ap = evaluate_tool.main(["--results", str(results_dir), "--data",
+                                 str(root), "--split", "pseudo",
+                                 "--cluster-eval"])
+    line = next((ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("synth_0:")), None)
+    if line is None:
+        raise AssertionError("evaluate --cluster-eval printed no sequence line")
+    return ap, line
+
+
+def check_label_round_trip(root, results):
+    """Phase 3d, round trip: the run's detections written by
+    ``export_pseudo_labels`` over the reloaded split and read back hold the
+    same names and boxes, as numpy only."""
+    import pickle
+
+    import numpy as np
+    from vilgod_tpu_torch.data import WaymoSequenceDataset, export_pseudo_labels
+
+    path = export_pseudo_labels(WaymoSequenceDataset(root, split="pseudo"),
+                                {"synth_0": results}, root / "pseudo_labels.pkl")
+    with open(path, "rb") as f:
+        infos = pickle.load(f)
+    if len(infos) != len(results):
+        raise AssertionError(f"pseudo labels: {len(infos)} frames")
+    for info, r in zip(infos, results):
+        annos = info["annos"]
+        boxes = np.asarray(r["boxes_lidar"], np.float32).reshape(-1, 7)
+        if not (type(annos["gt_boxes_lidar"]) is np.ndarray
+                and np.array_equal(annos["gt_boxes_lidar"], boxes)
+                and np.array_equal(annos["name"], r["name"])):
+            raise AssertionError(f"pseudo labels of {info['frame_id']} differ "
+                                 f"from the run's detections")
+    return path.stat().st_size
+
+
+def check_real_data_path(ds, cfg, real, st, results, main_attention,
+                         main_ap, smi):
+    """Phase 3d: the parity scene exported to a Waymo layout under
+    ``real``, read back (timed), run through the run tool's ``main`` on the
+    card at the main path's caps and nine stages with its launch counts
+    zeroed just before and read just after (kernels 1-4 each launched,
+    ``fused_attention_proj`` as often as on the main path), held to the
+    main path's state ``st`` and ``results``, re-scored by the evaluate CLI
+    (its APs equal ``ap_results.json`` to 1e-6) and written as pseudo
+    labels and read back. Returns the phase's summary."""
+    import torch
+    from vilgod_tpu_torch.data import WaymoSequenceDataset
+    from vilgod_tpu_torch.models import vit_kernels
+    from vilgod_tpu_torch.ops import dense_kernels, kernels
+    from vilgod_tpu_torch.pipeline.state import Capacity, SequenceState
+    from vilgod_tpu_torch.tools import run as run_tool
+
+    n_frames = len(results)
+    t_phase = time.perf_counter()
+    export_bytes, export_s = export_parity_scene(ds, real / "data")
+    t0 = time.perf_counter()
+    lseq = WaymoSequenceDataset(real / "data", split="pseudo").sequence(
+        "synth_0")
+    for f in range(lseq.sequence_length):
+        lseq.get_lidar_points(f)
+    load_s = time.perf_counter() - t0
+    stage_log = StageSeconds()
+    logging.getLogger("vilgod_tpu_torch").addHandler(stage_log)
+    for mod in (kernels, vit_kernels, dense_kernels):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        real_results = run_tool.main([
+            "preprocessor=waymo", f"paths.data={real / 'data'}",
+            "split=pseudo", f"paths.results={real / 'results'}",
+            f"paths.sequence_data={real / 'cache'}",
+            f"capacity={CAPS!r}", f"pipeline_active={STAGES!r}"])
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger("vilgod_tpu_torch").removeHandler(stage_log)
+    wall = time.perf_counter() - t0
+    launches = {**kernels.LAUNCHES, **vit_kernels.LAUNCHES,
+                **dense_kernels.LAUNCHES}
+    for name in kernels.KERNEL_NAMES:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the real-data "
+                                 f"path")
+    if launches["fused_attention_proj"] != main_attention:
+        raise AssertionError(
+            f"fused_attention_proj launched {launches['fused_attention_proj']}"
+            f" times on the real-data path, {main_attention} on the main path")
+    real_st = SequenceState.allocate("synth_0", n_frames,
+                                     Capacity.from_cfg(cfg), device="cpu")
+    if not real_st.load(real / "cache" / "synth_0.npz"):
+        raise AssertionError("real-data path: no checkpoint written")
+    box_err, score_err = check_real_data_run(st, real_st, results,
+                                             real_results)
+    written = json.loads((real / "results" / "ap_results.json").read_text())
+    rescored, cluster_line = rescore(real / "results", real / "data")
+    rescore_err = max(abs(rescored[k] - written[k]) for k in written)
+    if rescored.keys() != written.keys() or rescore_err > 1e-6:
+        raise AssertionError(f"evaluate re-score != ap_results.json: "
+                             f"{rescore_err}")
+    labels_bytes = check_label_round_trip(real / "data", real_results)
+    stage_s = sum(stage_log.seconds.values())
+    return {"device": smi, "phase_s": time.perf_counter() - t_phase,
+            "frames": n_frames, "export_bytes": export_bytes,
+            "export_s": export_s, "load_s": load_s, "wall_s": wall,
+            "stage_s": stage_log.seconds, "stage_sum_s": stage_s,
+            "frames_per_s": n_frames / stage_s, "launches": launches,
+            "box_max_err_m": box_err, "score_max_err": score_err,
+            "rescore_ap_max_err": rescore_err,
+            "pseudo_labels_bytes": labels_bytes, "cluster_eval": cluster_line,
+            "level_2_ap_exported_gt": ap_summary(written),
+            "level_2_ap_main_path_synthetic_gt": ap_summary(main_ap)}
+
+
+def check_entropy_window(win, win_mask, seek, kernels, dense_kernels):
+    """Phase 4: ``entropy_scores_window`` of frame ``seek`` against the
+    window on the card and on the CPU: each window frame's count equal
+    (recorded at the op's ``radius_count``), scores within 1e-6."""
+    import torch
+    from vilgod_tpu_torch.ops import entropy as entropy_mod
+
+    radius_count = entropy_mod.radius_count
+    counts = {}
+
+    def run(device):
+        got = counts.setdefault(device, [])
+
+        def recording(*args, **kwargs):
+            c = radius_count(*args, **kwargs)
+            got.append(c.cpu())
+            return c
+        entropy_mod.radius_count = recording
+        try:
+            w, m = win.to(device), win_mask.to(device)
+            t0 = time.perf_counter()
+            h = entropy_mod.entropy_scores_window(w[seek], m[seek], w, m, seek)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return h.cpu(), (time.perf_counter() - t0) * 1e3
+        finally:
+            entropy_mod.radius_count = radius_count
+
+    run("cuda")                       # warm-up
+    counts.clear()
+    kernels.reset_launches()
+    dense_kernels.reset_launches()
+    card, card_ms = run("cuda")
+    launched = {"banded_tile_count": kernels.LAUNCHES["banded_tile_count"],
+                "tile_radius_count": dense_kernels.LAUNCHES["tile_radius_count"]}
+    cpu, cpu_ms = run("cpu")
+    a, b = torch.stack(counts["cuda"]), torch.stack(counts["cpu"])
+    mismatches = int((a != b).sum())
+    err = float((card - cpu).abs().max())
+    if mismatches or err > 1e-6 or sum(launched.values()) != win.shape[0]:
+        raise AssertionError(f"entropy_scores_window: {mismatches} counts "
+                             f"differ, scores {err}, launches {launched}")
+    return {"query": list(win[seek].shape), "window": list(win.shape),
+            "seek": seek, "launches": launched, "count_mismatches": mismatches,
+            "score_max_err": err, "card_ms": card_ms, "cpu_ms": cpu_ms}
+
+
+def check_knn_k(q, qm, d, dm, k=8):
+    """Phase 4: ``knn`` with k > 1 (plain torch: difference-form squared
+    distances, packed-key top-k) on the card and on the CPU: equal
+    indices, bitwise-equal squared distances (each product and sum is one
+    IEEE-rounded elementwise op on both)."""
+    import torch
+    from vilgod_tpu_torch.ops import knn
+
+    knn(q, qm, d, dm, k=k)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dc, ic = knn(q, qm, d, dm, k=k)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dp, ip = knn(q.cpu(), qm.cpu(), d.cpu(), dm.cpu(), k=k)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dc, ic = dc.cpu(), ic.cpu()
+    if not (torch.equal(ic, ip) and torch.equal(dc, dp)):
+        raise AssertionError(
+            f"knn k={k}: card != CPU, {int((ic != ip).sum())} indices, "
+            f"{int((dc != dp).sum())} squared distances")
+    return {"k": k, "query": list(q.shape), "data": list(d.shape),
+            "finite": int(torch.isfinite(dc).sum()), "card_ms": card_ms,
+            "cpu_ms": cpu_ms}
+
+
 def check_first_frames(a, b, card_emb, cpu_emb, card_clip, cpu_clip):
     """The 4-frame check: card state ``a`` against CPU state ``b``."""
     import numpy as np
@@ -1325,6 +1617,7 @@ def main() -> int:
     from vilgod_tpu_torch.ops import dense_kernels, kernels
     from vilgod_tpu_torch.pipeline.runner import (ZeroShotDetector,
                                                   run_sequences)
+    from vilgod_tpu_torch.pipeline.stages_geometry import frame_bucket
     from vilgod_tpu_torch.pipeline.state import (CLS_NONE, Capacity,
                                                  SequenceState)
     from vilgod_tpu_torch.utils.cuda_build import build_all
@@ -1429,6 +1722,8 @@ def main() -> int:
                 f"{launches['fused_attention_proj']} times on the main path, "
                 f"expected {want} ({n_layers} layers x {vit_rec.encode_calls} "
                 f"classify calls)")
+        main_attention = launches["fused_attention_proj"]
+        main_ap = score(results, ds)
         boxes = np.concatenate([r["boxes_lidar"] for r in results])
         if not (set(times) == set(STAGES) and dets.min() > 0 and valid.any()
                 and len(results) == n_frames and len(boxes) > 0
@@ -1492,6 +1787,11 @@ def main() -> int:
             "boxes_per_frame": [len(r["name"]) for r in geo_results],
             "tracks": int(len(geo_state.tracks.valid_tracks())),
             "level_2_ap": ap_summary(geo_ap)}))
+        # phase 4's entropy window and knn inputs: the main path's
+        # world-frame non-ground frames at the entropy stage's bucket
+        f_pad, n_ng = frame_bucket(n_frames), geo_state.ng_bucket()
+        ng_xyz = geo_state.device("ng_xyz", f_pad, n_ng)[:ENTROPY_WINDOW].clone()
+        ng_mask = geo_state.device("ng_mask", f_pad, n_ng)[:ENTROPY_WINDOW].clone()
 
         # ---- 3b. the dense configuration ----
         dense_times = {}
@@ -1543,6 +1843,12 @@ def main() -> int:
             check_run_tool(run_dir)))
         shutil.rmtree(run_dir)
 
+        # ---- 3d. the real-data path: export, run from disk, re-score ----
+        real = work / "real"
+        log("real-data path: " + json.dumps(check_real_data_path(
+            ds, cfg, real, st, results, main_attention, main_ap, smi)))
+        shutil.rmtree(real)
+
         # ---- 4. kernels against their plain versions ----
         rows = []
         for name in kernels.KERNEL_NAMES:
@@ -1590,6 +1896,16 @@ def main() -> int:
             rows.append(row)
             log(f"kernel {name}: " + json.dumps(row))
             torch.cuda.empty_cache()
+        # the public ops no stage calls: one main-path frame against the
+        # entropy window, and its 8 nearest neighbours in the next frame
+        log("entropy_scores_window card vs CPU: " + json.dumps(
+            check_entropy_window(ng_xyz, ng_mask, ENTROPY_SEEK, kernels,
+                                 dense_kernels)))
+        log("knn k=8 card vs CPU: " + json.dumps(check_knn_k(
+            ng_xyz[ENTROPY_SEEK], ng_mask[ENTROPY_SEEK],
+            ng_xyz[ENTROPY_SEEK + 1], ng_mask[ENTROPY_SEEK + 1])))
+        del ng_xyz, ng_mask
+        torch.cuda.empty_cache()
 
         # ---- 5. CPU halves of the card-vs-CPU checks ----
         t0 = time.perf_counter()

@@ -199,3 +199,42 @@ def test_cluster_frames_chunk_equal(cap_in):
             np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                           err_msg=name)
     assert (ot[2].numpy() > 0).sum(axis=1).min() >= 3  # three blobs per frame
+
+
+def test_fidelity_vs_hdbscan_realistic_scene():
+    """tests/test_cluster.py's HDBSCAN fidelity harness on the port: on a
+    Waymo-density scene fragment (box shells at ~0.07 m surface spacing
+    over a sparse background) the radius-graph clustering agrees with
+    sklearn's HDBSCAN(min_cluster_size=15, cluster_selection_epsilon=0.15)
+    at ARI > 0.85."""
+    from sklearn.cluster import HDBSCAN
+    from sklearn.metrics import adjusted_rand_score
+
+    rng = np.random.default_rng(666)
+    objs = []
+    for cx, cy, ext in [(0, 0, (4.4, 1.9, 1.6)), (8, 4, (0.6, 0.6, 1.7)),
+                        (-6, 5, (1.8, 0.6, 1.7)), (5, -6, (4.4, 1.9, 1.6))]:
+        n = int(np.prod(ext) ** (2 / 3) * 600) + 150
+        pts = rng.uniform(-0.5, 0.5, (n, 3)) * np.asarray(ext)
+        pts[:, :2] += (cx, cy)
+        ax = rng.integers(0, 3, n)
+        for a in range(3):
+            sel = ax == a
+            pts[sel, a] = (np.sign(pts[sel, a] + 1e-9) * ext[a] / 2
+                           + (cx, cy, 0)[a])
+        objs.append(pts)
+    background = rng.uniform(-15, 15, (400, 3))
+    allp = np.concatenate(objs + [background]).astype(np.float32)
+    allp = allp[rng.permutation(len(allp))]
+    total = 1 << int(np.ceil(np.log2(len(allp))))
+    padded = np.zeros((total, 3), np.float32)
+    padded[: len(allp)] = allp
+    mask = np.arange(total) < len(allp)
+
+    labels, _ = TC.dbscan_labels(_t(padded), _t(mask), eps=0.15,
+                                 min_samples=5, min_cluster_size=15)
+    labels = labels.numpy()[: len(allp)]
+    h = HDBSCAN(min_cluster_size=15, cluster_selection_epsilon=0.15,
+                metric="euclidean", copy=True).fit(allp)
+    score = adjusted_rand_score(labels, h.labels_)
+    assert score > 0.85, f"ARI vs HDBSCAN = {score:.3f}"

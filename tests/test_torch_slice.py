@@ -97,8 +97,9 @@ def test_jax_checkpoint_loads_into_port(jax_state, tmp_path):
 def test_port_runs_without_jax(tmp_path):
     """vilgod_tpu_torch never imports jax: with jax unimportable the
     package (the CLIP models, the classification and box stages, tracking,
-    eval, the dense kernels, the run tool and the bench included) imports
-    and runs a stage; asking for cuda without a card raises."""
+    eval, the dense kernels, the dataset adapters and export, the run tool,
+    the evaluate tool and the bench included) imports and runs a stage;
+    asking for cuda without a card raises."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -111,8 +112,10 @@ from vilgod_tpu_torch.models import clip, clip_wrapper, tokenizer, vit_kernels
 from vilgod_tpu_torch.pipeline import stages_boxes, stages_classify
 from vilgod_tpu_torch import eval, tracking
 from vilgod_tpu_torch.ops import boxes, dense_kernels
-from vilgod_tpu_torch.tools import bench, run
-from vilgod_tpu_torch import utils
+from vilgod_tpu_torch.tools import bench, evaluate, run
+from vilgod_tpu_torch import ground, ops, utils
+from vilgod_tpu_torch.data import argoverse, export, openpcdet, waymo
+from vilgod_tpu_torch.eval import sequence_eval, waymo_tf
 cap = {"max_points": 16384, "max_ng_points": 8192, "max_cluster_input": 8192}
 cfg = waymo_config(capacity=cap, pipeline_active=["mask_ground_points"])
 seq = SyntheticDataset(n_sequences=1, n_frames=4, seed=12, n_ground=3000,

@@ -1,12 +1,16 @@
-"""The port's run tool (``vilgod_tpu_torch.tools.run``), its
-``utils/common`` helpers, and the runner's ``profile_dir`` trace.
+"""The port's run tool (``vilgod_tpu_torch.tools.run``), its re-scoring
+CLI (``vilgod_tpu_torch.tools.evaluate``), its ``utils/common`` helpers,
+and the runner's ``profile_dir`` trace.
 
 The helpers are held against the JAX package's own (``vilgod_tpu.utils``)
 on tests/test_tools.py's oracles and on random inputs; ``parse_overrides``
 against the JAX tool's on tests/test_tools.py's cases; the tool runs the
 geometry stages on the CPU on tests/test_pipeline_e2e.py's smoke scene,
 writes ``ap_results.json`` and, with ``profile_dir``, a trace with one span
-per active stage."""
+per active stage. The same scene exported to the Waymo layout and run
+from disk (``preprocessor=waymo paths.data=...``) gives the same
+pipeline outputs; the port's evaluate CLI and the JAX package's print the
+same APs on the port's results and on JAX-schema result files."""
 import importlib.util
 import json
 import logging
@@ -33,12 +37,16 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jax_run_tool():
-    spec = importlib.util.spec_from_file_location("jax_run",
-                                                  REPO / "tools" / "run.py")
+def _jax_tool(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}",
+                                                  REPO / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _jax_run_tool():
+    return _jax_tool("run")
 
 
 def test_common_utils_oracles():
@@ -116,14 +124,13 @@ def test_parse_overrides_rejects_bare_words():
 
 @pytest.mark.parametrize("preset", ["waymo", "argoverse"])
 def test_real_datasets_raise(preset, tmp_path):
-    """The real-data adapters are not ported: their preprocessors raise,
-    naming the ROADMAP item, and never fall back to the synthetic scene
-    (with a data path or without)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        R.main([f"preprocessor={preset}", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    """A real-data preprocessor without ``paths.data`` raises, naming
+    ``paths.data``, and never falls back to the synthetic scene (the JAX
+    tool does; a standing difference, ROADMAP queue 3)."""
+    with pytest.raises(ValueError, match="needs paths.data"):
         R.main([f"preprocessor={preset}", "device=cpu",
-                f"paths.data={tmp_path}"])
+                f"paths.results={tmp_path / 'results'}"])
+    assert not (tmp_path / "results").exists()
 
 
 def test_default_device_is_the_card():
@@ -229,3 +236,121 @@ def test_no_trace_without_profile_dir(tmp_path):
     assert "mask_ground_points" not in {e.name for e in prof.events()}
     assert set(zsd.stage_times) == {"mask_ground_points"}
     assert [p.name for p in tmp_path.iterdir()] == ["synth_0.npz"]
+
+
+SMOKE_SCENE = dict(n_sequences=1, n_frames=6, n_ground=900, n_vehicles=1,
+                   n_pedestrians=0, n_moving=0, seed=11)
+
+
+@pytest.fixture(scope="module")
+def waymo_run(tmp_path_factory):
+    """The smoke scene exported to the Waymo layout (its GT as labels, its
+    object indices as track ids) and run from disk by the tool, as
+    ``smoke_run`` runs it from the generator."""
+    from vilgod_tpu_torch.data import SyntheticDataset
+    from vilgod_tpu_torch.data.export import export_pseudo_dataset
+
+    root = tmp_path_factory.mktemp("waymo")
+    seq = SyntheticDataset(**SMOKE_SCENE).sequence("synth_0")
+    labels, tids = [], []
+    for f in range(SMOKE_SCENE["n_frames"]):
+        gt = seq.get_annos(f)
+        labels.append({"boxes_lidar": gt["gt_boxes_lidar"], "name": gt["gt_names"],
+                       "score": np.ones(len(gt["gt_names"]), np.float32),
+                       "moving": gt["moving"]})
+        tids.append(np.arange(len(gt["gt_names"])))
+    export_pseudo_dataset(SyntheticDataset(**SMOKE_SCENE), {"synth_0": labels},
+                          root / "data", track_ids_by_sequence={"synth_0": tids})
+    out = root / "out"
+    results = R.main([
+        "preprocessor=waymo", "device=cpu", f"paths.data={root / 'data'}",
+        "split=pseudo", "random_seed=11", f"capacity={SMOKE_CAPS!r}",
+        f"pipeline_active={GEOMETRY!r}", f"paths.results={out / 'results'}",
+        f"paths.sequence_data={out / 'cache'}"])
+    return root, results
+
+
+def test_run_tool_from_waymo_layout_matches_synthetic(smoke_run, waymo_run):
+    """``preprocessor=waymo`` reads the export and writes
+    ``ap_results.json``; its detections, boxes, scores and every stage
+    output of the checkpoint equal the run on the generator's frames."""
+    out, syn = smoke_run
+    root, real = waymo_run
+    assert (root / "out" / "results" / "ap_results.json").exists()
+    assert len(real) == len(syn) == SMOKE_SCENE["n_frames"]
+    for a, b in zip(real, syn):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with np.load(out / "cache" / "synth_0.npz") as a, \
+            np.load(root / "out" / "cache" / "synth_0.npz") as b:
+        assert set(a.files) == set(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _evaluate_both(capsys, args):
+    """The port's evaluate CLI and the JAX package's on the same flags:
+    (the port's APs, its stdout, the JAX tool's stdout)."""
+    from vilgod_tpu_torch.tools import evaluate as E
+
+    ap = E.main(args)
+    port_out = capsys.readouterr().out
+    _jax_tool("evaluate").main(args)
+    return ap, port_out, capsys.readouterr().out
+
+
+def test_evaluate_cli_rescoring_matches_jax_and_run_tool(waymo_run, capsys):
+    """On the run tool's results directory: both CLIs print the same AP
+    table and cluster line, and the APs equal ``ap_results.json``."""
+    root, _ = waymo_run
+    args = ["--results", str(root / "out" / "results"), "--data",
+            str(root / "data"), "--split", "pseudo", "--cluster-eval"]
+    ap, port_out, jax_out = _evaluate_both(capsys, args)
+    assert port_out == jax_out
+    assert "synth_0: box_recall=" in port_out and "Vehicle AP" in port_out
+    written = json.loads((root / "out" / "results" / "ap_results.json").read_text())
+    assert ap.keys() == written.keys()
+    for k in ap:
+        assert ap[k] == pytest.approx(written[k], abs=1e-6), k
+    for flags in (["--moving"], ["--static", "--bev"], ["--class-agnostic"],
+                  ["--iou", "0.7", "--score-thresh", "0.5"]):
+        _, port_out, jax_out = _evaluate_both(capsys, args[:-1] + flags)
+        assert port_out == jax_out, flags
+
+
+def test_evaluate_cli_reads_jax_schema_results(waymo_run, tmp_path, capsys):
+    """A results directory in the JAX runner's schema (``results``: an
+    object array of frame dicts, written as the JAX runner writes it) and
+    a pickle of frame dicts: both CLIs agree; perfect labels score 1."""
+    import pickle
+    from vilgod_tpu.data import WaymoSequenceDataset
+
+    root, _ = waymo_run
+    seq = WaymoSequenceDataset(root / "data", split="pseudo").sequence("synth_0")
+    frames = []
+    for f in range(seq.sequence_length):
+        gt = seq.get_annos(f)
+        frames.append({"boxes_lidar": gt["gt_boxes_lidar"].astype(np.float32),
+                       "name": gt["gt_names"],
+                       "score": np.full(len(gt["gt_names"]), 0.9, np.float32)})
+    (tmp_path / "npz").mkdir()
+    np.savez_compressed(tmp_path / "npz" / "synth_0.npz",
+                        results=np.array(frames, dtype=object))
+    with open(tmp_path / "synth_0.pkl", "wb") as fp:
+        pickle.dump(frames, fp)
+    for results in (tmp_path / "npz", tmp_path / "synth_0.pkl"):
+        args = ["--results", str(results), "--data", str(root / "data"),
+                "--split", "pseudo"]
+        ap, port_out, jax_out = _evaluate_both(capsys, args)
+        assert port_out == jax_out
+        assert ap["OBJECT_TYPE_TYPE_VEHICLE_LEVEL_2/AP"] == pytest.approx(1.0)
+
+
+def test_evaluate_cli_without_overlap_exits(waymo_run, tmp_path):
+    from vilgod_tpu_torch.tools import evaluate as E
+
+    root, _ = waymo_run
+    with pytest.raises(SystemExit, match="no overlapping sequences"):
+        E.main(["--results", str(tmp_path), "--data", str(root / "data"),
+                "--split", "pseudo"])

@@ -1,5 +1,5 @@
 from .patchwork import (GroundConfig, GroundState, ground_config_from_cfg,
-                        init_ground_state, segment_sequence)
+                        init_ground_state, segment_ground, segment_sequence)
 
 __all__ = ["GroundConfig", "GroundState", "ground_config_from_cfg",
-           "init_ground_state", "segment_sequence"]
+           "init_ground_state", "segment_ground", "segment_sequence"]

@@ -334,7 +334,9 @@ def _presort_frame(points: torch.Tensor, mask: torch.Tensor,
 def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
                        pid_geo, sorted_key, order, starts, xyz_sorted):
     """State-dependent part of the segmentation of one presorted frame.
-    Returns (ground (N,) bool, new_state)."""
+    Returns (ground (N,) bool, new_state, aux): aux holds the per-patch
+    ``patch_ground``, ``normals``, ``means`` and ``n_ground`` and the
+    per-point RNR ``noise``."""
     n = points.shape[0]
     dev = points.device
     num_patches = _num_patches(cfg)
@@ -462,7 +464,19 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
 
     new_state = _update_state(state, store, elevation, flatness,
                               conc_clamped, cfg)
-    return ground, new_state
+    aux = {"patch_ground": patch_ground, "normals": normals, "means": means,
+           "n_ground": n_ground, "noise": noise}
+    return ground, new_state, aux
+
+
+def segment_ground(points: torch.Tensor, mask: torch.Tensor,
+                   state: GroundState, cfg: GroundConfig):
+    """Segment one frame. points (N, 4+) = [x, y, z, intensity, ...] in the
+    sensor frame, already z-offset corrected by the caller; mask (N,).
+    Returns (ground (N,) bool, new_state, aux), on the device of
+    ``points``; one step of :func:`segment_sequence`."""
+    return _segment_presorted(points, mask, state, cfg,
+                              *_presort_frame(points, mask, cfg))
 
 
 def _ring_buffer_append(buf, cnt, ptr, values, sel, max_storage):
@@ -531,6 +545,7 @@ def segment_sequence(points: torch.Tensor, mask: torch.Tensor,
     ground = []
     for f in range(points.shape[0]):
         pre = _presort_frame(points[f], mask[f], cfg)
-        g, state = _segment_presorted(points[f], mask[f], state, cfg, *pre)
+        g, state, _ = _segment_presorted(points[f], mask[f], state, cfg,
+                                         *pre)
         ground.append(g)
     return torch.stack(ground), state

@@ -18,6 +18,8 @@ Large tile-multiple inputs run banded kernels (``ops/kernels.py``) whose
 window overflow re-runs that pass alone at full width; small or
 non-tile-multiple inputs, and plain (non-adaptive) DBSCAN, run the dense
 all-pairs kernels (``ops/dense_kernels.py``) of :func:`_dbscan_full`.
+Also the per-cluster point table, cluster sizes and the compaction of
+root labels to dense cluster ids.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .banded import (_INVALID_CID, GRID, band_width, banded_min_label,
 from . import dense_kernels
 from .kernels import TD, TQ, TQ_HEAVY, prep_t8
 from .neighbors import PAGE_ISO
+from .segment import seg_count_by_label
 
 _BIG_LABEL = 2 ** 30
 
@@ -364,3 +367,42 @@ def build_cluster_table(labels, mask, num_clusters: int, capacity: int):
     table[flat] = torch.where(in_table, order.to(torch.int32), -1)
     table = table[:num_clusters * capacity].reshape(num_clusters, capacity)
     return table, table >= 0
+
+
+def cluster_sizes(labels, mask, num_clusters: int) -> torch.Tensor:
+    """Points per cluster, int32 (num_clusters,): labels -1, masked points
+    and labels at or past ``num_clusters`` count nowhere (JAX's
+    segment_sum drops out-of-range segments)."""
+    return seg_count_by_label(labels, mask & (labels < num_clusters),
+                              num_clusters)
+
+
+def compact_labels(labels, max_clusters: int) -> torch.Tensor:
+    """Map labels in [0, N) to dense ids in ascending label order (the
+    reference's np.sort(unique) order); -1 stays -1, ids past
+    ``max_clusters`` become -1. int32 (N,)."""
+    n = labels.shape[0]
+    dev = labels.device
+    present = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    present[torch.where(labels >= 0, labels, n).long()] = 1
+    new_ids = torch.cumsum(present[:n], 0, dtype=torch.int32) - 1
+    compact = torch.where(labels >= 0,
+                          new_ids[torch.clamp(labels, 0, n - 1).long()], -1)
+    return torch.where(compact >= max_clusters, -1, compact).to(torch.int32)
+
+
+def compact_labels_any(labels, max_clusters: int) -> torch.Tensor:
+    """Like :func:`compact_labels` for any non-negative label values (the
+    paged clustering's global sorted-rank roots exceed the page length):
+    distinct values ranked ascending. int32 (N,)."""
+    n = labels.shape[0]
+    big = torch.tensor(_BIG_LABEL, dtype=labels.dtype, device=labels.device)
+    sorted_lab = torch.sort(torch.where(labels >= 0, labels, big)).values
+    is_first = torch.cat([
+        sorted_lab[:1] < big,
+        (sorted_lab[1:] != sorted_lab[:-1]) & (sorted_lab[1:] < big)])
+    ranks = torch.cumsum(is_first.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.searchsorted(sorted_lab, torch.clamp(labels, min=0))
+    compact = torch.where(labels >= 0,
+                          ranks[torch.clamp(pos, max=n - 1)], -1)
+    return torch.where(compact >= max_clusters, -1, compact).to(torch.int32)

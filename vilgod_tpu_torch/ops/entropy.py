@@ -1,5 +1,7 @@
 """Ephemerality / entropy motion scores (MODEST-style); the port of
-``vilgod_tpu/ops/entropy.py``."""
+``vilgod_tpu/ops/entropy.py``: the score from window counts, one frame's
+scores against a window (``entropy_scores_window``) and a whole
+sequence's (``entropy_sequence``)."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +28,29 @@ def entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
     for k in range(1, w):
         h = h + terms[:, k]
     return h / log_w.to(counts.device)
+
+
+def entropy_scores_window(query, query_mask, window, window_mask, seek,
+                          radius: float = 0.3,
+                          max_neighbor_points: int = 1000,
+                          exclude_self_frame: bool = True) -> torch.Tensor:
+    """Entropy scores of one frame's ``query`` (P, 3) against a window of
+    frames (W, Pw, 3) with masks (W, Pw): per window frame one
+    :func:`radius_count` (banded, kernel 1, for large tile-multiple clouds
+    with a radius below the cell side; else the dense count, kernel 6),
+    clipped at ``max_neighbor_points``. ``seek`` is the query frame's index
+    in the window: its own count drops the query point itself. Invalid
+    queries score 1."""
+    seek = int(seek)
+    counts = []
+    for w in range(window.shape[0]):
+        c = radius_count(query, query_mask, window[w], window_mask[w], radius,
+                         max_count=max_neighbor_points + 1)
+        if exclude_self_frame and w == seek:
+            c = torch.clamp(c - 1, min=0)
+        counts.append(torch.clamp(c, max=max_neighbor_points))
+    h = entropy_from_counts(torch.stack(counts, dim=1))
+    return torch.where(query_mask, h, torch.ones_like(h))
 
 
 def entropy_sequence(frames, masks, frame_valid, window: int = 15,

@@ -99,22 +99,53 @@ def radius_count_self(points, mask, radius: float,
     return torch.clamp(torch.clamp(c - 1, min=0), max=max_count)
 
 
+# data points per block of the k > 1 search (the JAX package's default)
+KNN_BLOCK = 4096
+
+
 def knn(query, query_mask, data, data_mask, k: int = 1):
-    """Nearest neighbour: (Q, 3) vs (D, 3) -> (squared dists (Q, 1) f32,
-    indices (Q, 1) int32 into the caller's data order, clamped to D - 1).
-    Invalid queries get +inf; invalid data points never win over a valid
-    one (they sit at the far sentinel)."""
-    if k != 1:
-        raise NotImplementedError(
-            "knn with k > 1 (the JAX package's blockwise top-k) is not "
-            "ported: no stage calls it (ROADMAP queue 1)")
+    """Brute-force k nearest neighbours: (Q, 3) vs (D, 3) -> (squared
+    dists (Q, k) f32 ascending, indices (Q, k) int32). Invalid queries get
+    +inf; invalid data points sit at +inf and never win over a valid one.
+
+    k = 1 is the dense nearest kernel (indices into the caller's data
+    order, clamped to D - 1). k > 1 is a blockwise top-k in plain torch:
+    per data block the squared distances in difference form (x, y, z
+    each differenced and squared, summed in that order), packed with
+    their index into one int64 key, so equal distances go to the lower
+    index as ``jax.lax.top_k`` gives them; the block's k best merge with
+    the running k best. An entry at +inf (past the valid data) takes
+    index 0, as the JAX package's merge with its initial list gives it."""
     nq, nd = query.shape[0], data.shape[0]
-    q_t8 = prep_t8(query[:, :3], query_mask, TQ)
-    d_t8 = prep_t8(data[:, :3], data_mask, TD)
-    bd, bi = dense_kernels.tile_nearest(q_t8, d_t8)
-    bd = torch.where(query_mask, bd[:nq], float("inf"))
-    bi = torch.clamp(bi[:nq], max=nd - 1)
-    return bd[:, None], bi[:, None]
+    if k == 1:
+        q_t8 = prep_t8(query[:, :3], query_mask, TQ)
+        d_t8 = prep_t8(data[:, :3], data_mask, TD)
+        bd, bi = dense_kernels.tile_nearest(q_t8, d_t8)
+        bd = torch.where(query_mask, bd[:nq], float("inf"))
+        bi = torch.clamp(bi[:nq], max=nd - 1)
+        return bd[:, None], bi[:, None]
+    dev = query.device
+    # the running list starts at +inf (f32 bits 0x7F800000) with index 0
+    best = torch.full((nq, k), 0x7F800000 << 32, dtype=torch.int64,
+                      device=dev)
+    for b0 in range(0, nd, KNN_BLOCK):
+        d, m = data[b0:b0 + KNN_BLOCK], data_mask[b0:b0 + KNN_BLOCK]
+        dist2 = None
+        for c in range(3):
+            diff = query[:, c:c + 1] - d[None, :, c]
+            dist2 = diff * diff if dist2 is None else dist2 + diff * diff
+        dist2 = torch.where(m[None, :], dist2, float("inf"))
+        idx = torch.arange(b0, b0 + d.shape[0], dtype=torch.int64, device=dev)
+        keys = (dist2.view(torch.int32).to(torch.int64) << 32) | idx
+        kb = min(k, d.shape[0])
+        blk = torch.topk(keys, kb, dim=1, largest=False, sorted=True).values
+        best = torch.topk(torch.cat([best, blk], dim=1), k, dim=1,
+                          largest=False, sorted=True).values
+    dists = (best >> 32).to(torch.int32).view(torch.float32)
+    idx = torch.where(torch.isinf(dists), 0,
+                      (best & 0xFFFFFFFF).to(torch.int32))
+    dists = torch.where(query_mask[:, None], dists, float("inf"))
+    return dists, idx
 
 
 def chamfer_distance(points_1, mask_1, points_2, mask_2,

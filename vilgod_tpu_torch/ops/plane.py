@@ -1,6 +1,6 @@
 """Ground-plane estimation for the filter stage: fixed-iteration RANSAC
-with Gumbel top-3 sampling and a least-squares (PCA) refit; the port of
-``vilgod_tpu/ops/plane.py:19-93``.
+with Gumbel top-3 sampling and a least-squares (PCA) refit, and the
+masked PCA plane statistics; the port of ``vilgod_tpu/ops/plane.py``.
 
 The Gumbel draws are ``jax.random.gumbel``'s bit for bit
 (:mod:`.random`), so both packages sample the same triples. Dot products
@@ -81,10 +81,11 @@ def ransac_plane(points, mask, key: tuple[int, int], threshold: float = 0.1,
     return planes[best], inliers[best]
 
 
-def refine_plane_lsq(points, mask) -> torch.Tensor:
-    """Least-squares (PCA) plane through the masked points: the smallest
-    eigenvector of their covariance, flipped to +z. The sums run in
-    float64 and the eigenproblem too (JAX solves it in float32; the two
+def pca_plane_stats(points, mask):
+    """Masked PCA plane: (normal (3,) flipped to +z, mean (3,), d,
+    eigenvalues (3,) ascending and clipped at 0), the smallest eigenvector
+    of the covariance as the normal and d = -normal . mean. The sums run
+    in float64 and the eigenproblem too (JAX solves it in float32; the two
     differ by float32 rounding)."""
     n = torch.clamp(mask.sum(), min=1).to(torch.float64)
     pts = points[:, :3]
@@ -92,10 +93,18 @@ def refine_plane_lsq(points, mask) -> torch.Tensor:
             .sum(dim=0) / n).to(torch.float32)
     centered = torch.where(mask[:, None], pts - mean, 0.0).to(torch.float64)
     cov = centered.T @ centered / torch.clamp(n - 1, min=1)
-    _, vecs = torch.linalg.eigh(cov)
+    eigvals, vecs = torch.linalg.eigh(cov)
     normal = vecs[:, 0].to(torch.float32)       # the smallest eigenvalue's
     normal = torch.where(normal[2] < 0, -normal, normal)
-    return torch.cat([normal, -_dot3(normal, mean)[None]])
+    return (normal, mean, -_dot3(normal, mean),
+            torch.clamp(eigvals.to(torch.float32), min=0.0))
+
+
+def refine_plane_lsq(points, mask) -> torch.Tensor:
+    """Least-squares (PCA) plane through the masked points,
+    [a, b, c, d] with a unit normal flipped to +z (:func:`pca_plane_stats`)."""
+    normal, _, d, _ = pca_plane_stats(points, mask)
+    return torch.cat([normal, d[None]])
 
 
 def fit_ground_plane(points, mask, key: tuple[int, int],

@@ -1,7 +1,9 @@
-"""Per-label statistics straight from the flat cloud, and the masked
-median of a gather table; the port of the by-label statistics and
-``seg_median`` of ``vilgod_tpu/ops/segment.py`` (median, percentile, min,
-max, count and support-function hull area)."""
+"""Per-cluster statistics; the port of ``vilgod_tpu/ops/segment.py``.
+
+Over a padded (C, P) gather table: the gather itself, count, mean, min,
+max, median and percentile per row. Straight from the flat cloud by
+label: median, percentile, min, max, count and the support-function hull
+area, which also gives one point set's hull (``convex_hull_area_bev``)."""
 from __future__ import annotations
 
 import math
@@ -38,16 +40,80 @@ def _take(values, idx):
     return values[torch.clamp(idx, 0, values.shape[0] - 1).long()]
 
 
+_POS = 1e9
+_NEG = -1e9
+
+
+def gather_cluster_points(points, table, table_mask):
+    """points (N, F), table (C, P) of indices -> (C, P, F), rows past a
+    cluster's points zeroed."""
+    gathered = points[torch.clamp(table, min=0).long()]
+    return torch.where(table_mask[..., None], gathered, 0.0)
+
+
+def seg_count(table_mask) -> torch.Tensor:
+    """Valid entries per table row, int32."""
+    return table_mask.sum(dim=-1, dtype=torch.int32)
+
+
+def _row_mask(values, table_mask):
+    return table_mask[..., None] if values.dim() == 3 else table_mask
+
+
+def seg_mean(values, table_mask):
+    """Mean over each row's valid entries; values (C, P) or (C, P, F)."""
+    m = _row_mask(values, table_mask)
+    cnt = torch.clamp(m.sum(dim=1), min=1)
+    return torch.where(m, values, 0.0).sum(dim=1) / cnt
+
+
+def seg_min(values, table_mask):
+    """Minimum over each row's valid entries (1e9 for an empty row)."""
+    return torch.where(_row_mask(values, table_mask), values,
+                       _POS).amin(dim=1)
+
+
+def seg_max(values, table_mask):
+    """Maximum over each row's valid entries (-1e9 for an empty row)."""
+    return torch.where(_row_mask(values, table_mask), values,
+                       _NEG).amax(dim=1)
+
+
+def _sorted_rows(values, table_mask):
+    """Each row sorted with its invalid entries pushed to the end, and its
+    valid count."""
+    v = torch.sort(torch.where(table_mask, values, _POS), dim=1).values
+    return v, table_mask.sum(dim=1)
+
+
 def seg_median(values, table_mask):
     """Masked per-row median over a (C, P) table (numpy's: the mean of the
-    two middle elements for even counts) -> (C,)."""
-    v = torch.sort(torch.where(table_mask, values, 1e9), dim=1).values
-    cnt = table_mask.sum(dim=1)
+    two middle elements for even counts) -> (C,); values (C, P, F) give
+    (C, F)."""
+    if values.dim() == 3:
+        return torch.stack([seg_median(values[..., f], table_mask)
+                            for f in range(values.shape[-1])], dim=-1)
+    v, cnt = _sorted_rows(values, table_mask)
     lo = torch.clamp(cnt - 1, min=0) // 2
     hi = torch.clamp(cnt, min=1) // 2
     med = 0.5 * (torch.gather(v, 1, lo[:, None])[:, 0]
                  + torch.gather(v, 1, hi[:, None])[:, 0])
     return torch.where(cnt > 0, med, 0.0)
+
+
+def seg_percentile(values, table_mask, q: float):
+    """Masked per-row percentile of a (C, P) table, numpy's linear
+    interpolation; q in [0, 100]."""
+    v, cnt = _sorted_rows(values, table_mask)
+    # (q / 100) * count in f32, as the JAX package's weak-typed product
+    q_f32 = torch.tensor(q / 100.0, dtype=torch.float32, device=cnt.device)
+    pos = q_f32 * torch.clamp(cnt - 1, min=0).to(torch.float32)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.minimum(lo + 1, torch.clamp(cnt - 1, min=0))
+    frac = pos - lo.to(torch.float32)
+    out = (torch.gather(v, 1, lo[:, None])[:, 0] * (1 - frac)
+           + torch.gather(v, 1, hi[:, None])[:, 0] * frac)
+    return torch.where(cnt > 0, out, 0.0)
 
 
 def seg_median_by_label(values, labels, valid, num_segments: int,
@@ -199,3 +265,13 @@ def hull_area_by_label(points_xy, labels, valid, num_segments: int,
     area = 0.5 * torch.abs(terms.to(torch.float64).sum(dim=1)).to(torch.float32)
     cnt = seg_count_by_label(labels, valid, num_segments)
     return torch.where((cnt >= 3) & torch.isfinite(area), area, 0.0)
+
+
+def convex_hull_area_bev(points_xy, mask, n_angles: int = 720):
+    """Support-polygon convex-hull area of one masked 2-D point set (P, 2)
+    -> scalar: :func:`hull_area_by_label` with every point under one
+    label (the same polygon; its sum runs in float64, the JAX package's
+    in float32). Under three valid points the area is 0."""
+    labels = torch.zeros(points_xy.shape[0], dtype=torch.int32,
+                         device=points_xy.device)
+    return hull_area_by_label(points_xy, labels, mask, 1, n_angles)[0]

@@ -11,11 +11,18 @@ the JAX tool's.
         synthetic.n_frames=6 paths.results=out/results profile_dir=out/trace
     python -m vilgod_tpu_torch.tools.run config=my_overrides.yaml ...
 
-It runs on ``cuda`` unless given ``device=cpu``. Only the synthetic
-dataset is ported: the ``waymo`` and ``argoverse`` preprocessors (the
-default preset is ``waymo``) raise until their adapters are (ROADMAP
-queue 1 item 10). With ``profile_dir`` set, each sequence writes a
-``torch.profiler`` trace there, one span per stage.
+It runs on ``cuda`` unless given ``device=cpu``. ``preprocessor=waymo``
+(the default preset) and ``preprocessor=argoverse`` read the OpenPCDet
+layout at ``paths.data`` (``split``, ``start_sequence``, ``end_sequence``);
+without ``paths.data`` they raise rather than run the synthetic scene
+(the JAX tool falls back to it). ``preprocessor=synthetic`` runs the
+procedural scene of ``synthetic.*``. With ``profile_dir`` set, each
+sequence writes a ``torch.profiler`` trace there, one span per stage.
+
+    python -m vilgod_tpu_torch.tools.run preprocessor=waymo \\
+        paths.data=/data/waymo split=val paths.results=out/results
+    python -m vilgod_tpu_torch.tools.run preprocessor=argoverse \\
+        paths.data=/data/argo2 start_sequence=0 end_sequence=2
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import json
 import sys
 from pathlib import Path
 
-UNPORTED_DATASETS = ("waymo", "argoverse")
+REAL_DATASETS = ("waymo", "argoverse")
 
 
 def parse_overrides(argv: list[str]) -> dict:
@@ -72,14 +79,24 @@ def build_config(overrides: dict):
 
 
 def build_dataset(cfg):
-    """The synthetic dataset of ``cfg["synthetic"]``, seeded by
-    ``random_seed``; the real-data preprocessors raise."""
+    """The Waymo or Argoverse split at ``paths.data``; for
+    ``preprocessor=synthetic``, the synthetic dataset of
+    ``cfg["synthetic"]``, seeded by ``random_seed``. A real-data
+    preprocessor without ``paths.data`` raises."""
     name = cfg.get("preprocessor", {}).get("name", "synthetic")
-    if name in UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"preprocessor={name}: the {name} adapter is not ported to "
-            "vilgod_tpu_torch yet (ROADMAP queue 1 item 10); run "
-            "preprocessor=synthetic, or the JAX package's tools/run.py")
+    if name in REAL_DATASETS:
+        data = cfg.get("paths", {}).get("data")
+        if not data:
+            raise ValueError(
+                f"preprocessor={name} needs paths.data, the root of its "
+                "OpenPCDet layout; run preprocessor=synthetic for the "
+                "procedural scene")
+        from ..data import ArgoverseSequenceDataset, WaymoSequenceDataset
+        dataset_cls = (WaymoSequenceDataset if name == "waymo"
+                       else ArgoverseSequenceDataset)
+        return dataset_cls(data, split=cfg.get("split", "val"),
+                           start_sequence=cfg.get("start_sequence"),
+                           end_sequence=cfg.get("end_sequence"))
     from ..data import SyntheticDataset
     syn = cfg.get("synthetic", {})
     return SyntheticDataset(n_sequences=syn.get("n_sequences", 1),
@@ -156,12 +173,16 @@ def main(argv=None):
     logger.info("Pipeline on %s: %s", device,
                 " -> ".join(cfg.get("pipeline_active", [])))
     paths = cfg.get("paths", {})
+    stage_times: dict = {}
     results = run_sequences(dataset, cfg, clip_model=clip_model,
                             cache_dir=paths.get("sequence_data"),
-                            result_dir=paths.get("results"), device=device)
+                            result_dir=paths.get("results"),
+                            stage_times=stage_times, device=device)
+    logger.info("Stage seconds: %s", json.dumps(stage_times))
     logger.info("Collected %d frames of pseudo-labels (%d detections)",
                 len(results), sum(len(r["boxes_lidar"]) for r in results))
-    # every dataset the port has (the synthetic one) carries ground truth
+    # every dataset the port reads (synthetic, Waymo, Argoverse) carries
+    # ground truth
     evaluate(results, dataset, cfg, logger)
     return results
 
