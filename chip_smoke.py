@@ -67,6 +67,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``export_pseudo_labels`` read back with the same boxes. One line with
    the stage seconds, frames/s, export and load seconds and the APs
    against both GTs, beside the card's name and power limit;
+3e. the tools and the chained ground scan, each number beside the card's
+   name and power limit: (a) ``tools.parity_oracle.measure_delta_ap`` on
+   phase 3's scene at its caps on the card (kernels 1-4 each launched, the
+   counts zeroed just before and read just after): detections on both
+   sides, ``delta_ap_max`` <= 0.5, and 0.0 where no cluster truncates; the
+   per-class APs and ``n_truncated`` printed; (c) the chained ground scan
+   (``segment_sequence_chained``, k = 3) on phase 3's 24 frames: the
+   card's masks equal the card's per-chunk scans and the CPU's chained
+   scan exactly; (d) ``tools.microbench``'s ground (presort, scan, the
+   chained scan at k = 1 and 3), cluster (selection, paged DBSCAN and its
+   count3, min-label, propagation with its rounds, and nearest passes,
+   the kNN transfer) and classify (rendering, ViT-B/16 encode at
+   ``clip_batch`` 512) sections on phase 3's inputs, one line per part
+   with the kernel launches in it; (b) ``tools.soak``: two 199-frame
+   sequences (seeds 21, 22) at the full caps, stages 1-5 and 7-9 (kernels
+   1-4 each launched): no capacity saturated, detections in the last 50
+   frames, no nvcc build or library load in the second, its peak memory
+   within 5 % of the first's; cold and warm frames/s, peaks and stage
+   seconds printed, and the chained scan timed at k = 1, 5, 25 on the
+   first sequence's 200-frame bucket;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
    banded kernels also on a forced full-width (overflow) call each, small
@@ -151,6 +171,13 @@ EVAL_RANGE = (-50.0, -20.0, 50.0, 20.0)
 ENTROPY_WINDOW = 15
 ENTROPY_SEEK = 7
 CHECK_FRAMES = 4
+# phase 3e: the soak's length (a Waymo sequence, the 200-frame bucket), the
+# chained scan's k on that bucket, the microbench's timed repetitions, and
+# the ground stage's z offset
+SOAK_FRAMES = 199
+SOAK_CHAINS = (1, 5, 25)
+MICROBENCH_REPS = 2
+Z_OFFSET = 1.723
 # the card-vs-CPU tower: narrow, bf16, 64-wide heads (the fused path)
 CHECK_CLIP = dict(patch_size=32, vision_width=128, vision_layers=2,
                   vision_heads=2, embed_dim=64, text_width=64, text_heads=1,
@@ -1432,6 +1459,117 @@ def check_real_data_path(ds, cfg, real, st, results, main_attention,
             "level_2_ap_main_path_synthetic_gt": ap_summary(main_ap)}
 
 
+def check_delta_ap(cfg, ds, kernels, smi):
+    """Phase 3e (a): the port's ``measure_delta_ap`` on phase 3's scene at
+    the full caps on the card, its launch counts zeroed just before and
+    read just after (kernels 1-4 each launched)."""
+    from vilgod_tpu_torch.tools.parity_oracle import measure_delta_ap
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = measure_delta_ap(cfg, ds, "synth_0", device="cuda")
+    seconds = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)
+    for name in kernels.KERNEL_NAMES:
+        if launched[name] <= 0:
+            raise AssertionError(f"{name} never launched in measure_delta_ap")
+    if not (out["n_dets_table"] > 0 and out["n_dets_oracle"] > 0
+            and out["delta_ap_max"] <= 0.5):
+        raise AssertionError(f"measure_delta_ap out of bounds: {out}")
+    if out["n_truncated"] == 0 and out["delta_ap_max"] != 0.0:
+        raise AssertionError(f"no cluster truncated, yet the table and the "
+                             f"oracle part: {out}")
+    return {"device": smi, "seconds": seconds, "launches": launched, **out}
+
+
+def check_chained(points, mask, gcfg, smi, k=3):
+    """Phase 3e (c): on the main path's frames the card's chained scan
+    (k chains) equals the card's per-chunk scans exactly and the CPU's
+    chained scan."""
+    import torch
+    from vilgod_tpu_torch.ground.patchwork import (segment_sequence,
+                                                   segment_sequence_chained)
+
+    f = points.shape[0]
+    step = f // k
+    card = segment_sequence_chained(points, mask, gcfg, Z_OFFSET, k)
+    chunks = torch.cat([segment_sequence(points[i:i + step],
+                                         mask[i:i + step], gcfg,
+                                         Z_OFFSET)[0]
+                        for i in range(0, f, step)])
+    t0 = time.perf_counter()
+    cpu = segment_sequence_chained(points.cpu(), mask.cpu(), gcfg, Z_OFFSET,
+                                   k)
+    cpu_s = time.perf_counter() - t0
+    single = segment_sequence(points, mask, gcfg, Z_OFFSET)[0]
+    if not torch.equal(card, chunks):
+        raise AssertionError(f"chained scan (k={k}) differs from the per-chunk "
+                             f"scans on {int((card != chunks).sum())} points")
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError(f"chained scan (k={k}) differs card vs CPU on "
+                             f"{int((card.cpu() != cpu).sum())} points")
+    return {"device": smi, "frames": f, "chains": k,
+            "ground_points": int((card & mask).sum()),
+            "differ_from_single_scan": int(((card != single) & mask).sum()),
+            "cpu_s": cpu_s}
+
+
+def check_tools(ds, cfg, geo_state, kernels, smi):
+    """Phase 3e: the tools of ``vilgod_tpu_torch/tools`` and the chained
+    ground scan on the card: (a) the oracle's dAP, (c) the chained scan's
+    masks, (d) the microbench's ground (with the chained scan at k = 1, 3),
+    cluster and classify sections on phase 3's inputs, (b) the 199-frame
+    soak, with the chained scan timed at k = 1, 5, 25 on its first
+    sequence's 200-frame bucket. Returns the phase's summary."""
+    import torch
+    from vilgod_tpu_torch.tools import microbench, soak
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    delta = check_delta_ap(cfg, ds, kernels, smi)
+    log("3e (a) measure_delta_ap: " + json.dumps(delta))
+
+    points, mask, gcfg = microbench.ground_inputs(geo_state, cfg)
+    chained = check_chained(points, mask, gcfg, smi)
+    log("3e (c) chained scan masks: " + json.dumps(chained))
+    del points, mask
+
+    rows = []
+    for section in (microbench.bench_ground, microbench.bench_cluster,
+                    microbench.bench_classify):
+        rows += section(geo_state, cfg, MICROBENCH_REPS, dev)
+        torch.cuda.empty_cache()
+    log("3e (d) microbench: " + json.dumps({"device": smi, "rows": rows}))
+
+    bucket_rows = []
+
+    def time_chains(seed, state):
+        if seed == soak.SEEDS[0]:
+            pts, msk, g = microbench.ground_inputs(state, soak.build_cfg(False))
+            bucket_rows.extend(microbench.chained_rows(
+                pts, msk, g, SOAK_CHAINS, MICROBENCH_REPS, dev))
+
+    kernels.reset_launches()
+    report = soak.soak(soak.build_cfg(False), soak.FULL_SCENE, SOAK_FRAMES,
+                       dev, inspect=time_chains)
+    launched = dict(kernels.LAUNCHES)
+    for name in kernels.KERNEL_NAMES:
+        if launched[name] <= 0:
+            raise AssertionError(f"{name} never launched in the soak")
+    log("3e (b) soak: " + json.dumps({**report, "launches": launched}))
+    log("3e (c) chained scan on the soak's 200-frame bucket: "
+        + json.dumps({"device": smi, "rows": bucket_rows}))
+    return {"device": smi, "phase_s": time.perf_counter() - t_phase,
+            "delta_ap_max": delta["delta_ap_max"],
+            "n_truncated": delta["n_truncated"],
+            "soak_frames_per_s": [report["cold"]["frames_per_s"],
+                                  report["warm"]["frames_per_s"]],
+            "soak_peak_gib": [report["cold"]["peak_gib"],
+                              report["warm"]["peak_gib"]],
+            "chained_ms": {r["part"]: r["ms"] for r in rows + bucket_rows
+                           if "chained" in r["part"]}}
+
+
 def check_entropy_window(win, win_mask, seek, kernels, dense_kernels):
     """Phase 4: ``entropy_scores_window`` of frame ``seek`` against the
     window on the card and on the CPU: each window frame's count equal
@@ -1848,6 +1986,11 @@ def main() -> int:
         log("real-data path: " + json.dumps(check_real_data_path(
             ds, cfg, real, st, results, main_attention, main_ap, smi)))
         shutil.rmtree(real)
+
+        # ---- 3e. the tools and the chained ground scan ----
+        log("tools and chained scan: " + json.dumps(check_tools(
+            ds, cfg, geo_state, kernels, smi)))
+        torch.cuda.empty_cache()
 
         # ---- 4. kernels against their plain versions ----
         rows = []

@@ -140,15 +140,45 @@ print("OK")
     assert res.stdout.strip().endswith("OK")
 
 
-@pytest.mark.parametrize("stage,extra,match", [
-    ("mask_ground_points", {"parallel": {"ground_chains": 2}}, "item 11"),
-], ids=["ground-chains"])
-def test_unported_stage_raises(stage, extra, match):
-    """A branch the port does not have raises, naming the ROADMAP item that
-    ports it, instead of running something else (every stage name is
-    ported: tests/test_torch_stages_boxes.py)."""
-    cfg = waymo_config(capacity=CAP, pipeline_active=[stage], **extra)
-    zsd = ZeroShotDetector(SyntheticDataset(**SCENE).sequence("synth_0"),
-                           "synth_0", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        zsd.process()
+@pytest.mark.parametrize("chains,want", [(3, 3), (5, 1)],
+                         ids=["ground-chains", "ground-chains-fallback"])
+def test_unported_stage_raises(chains, want, monkeypatch):
+    """No branch of the port raises where the JAX package's runs: the last
+    one that did, ``parallel.ground_chains`` (a NotImplementedError until
+    the chained scan was ported), now runs the chained scan under the JAX
+    package's gate. On 24 frames k = 3 runs three chains of 8 frames; k = 5
+    does not divide 24 and falls back to the single scan. The stage's mask
+    is the scan's it took."""
+    from vilgod_tpu_torch.ground import patchwork
+    from vilgod_tpu_torch.pipeline import stages_geometry
+
+    taken = []
+
+    def spy(fn):
+        def run(*args, **kw):
+            taken.append(fn.__name__)
+            out = fn(*args, **kw)
+            taken.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        return run
+
+    for name in ("segment_sequence", "segment_sequence_chained"):
+        monkeypatch.setattr(stages_geometry, name,
+                            spy(getattr(patchwork, name)))
+    cap = {**CAP, "max_points": 8192, "max_ng_points": 4096}
+    cfg = waymo_config(capacity=cap, pipeline_active=["mask_ground_points"],
+                       parallel={"ground_chains": chains})
+    assert stages_geometry.ground_chains(cfg, 24) == want
+    zsd = ZeroShotDetector(SyntheticDataset(
+        n_sequences=1, n_frames=24, seed=12, n_ground=1200,
+        n_vehicles=1).sequence("synth_0"), "synth_0", cfg, device="cpu")
+    zsd.process()
+    assert taken[0] == ("segment_sequence_chained" if want > 1
+                        else "segment_sequence")
+    assert len(taken) == 2
+    ground = zsd.state.ground_mask
+    mask = zsd.state.points_mask
+    np.testing.assert_array_equal(
+        ground, (taken[1].numpy() & zsd.state.device(
+            "points_mask", 24, ground.shape[1]).numpy())[:24])
+    assert ground[mask].any()

@@ -354,3 +354,208 @@ def test_evaluate_cli_without_overlap_exits(waymo_run, tmp_path):
     with pytest.raises(SystemExit, match="no overlapping sequences"):
         E.main(["--results", str(tmp_path), "--data", str(root / "data"),
                 "--split", "pseudo"])
+
+
+# ---------------------------------------------------------------------------
+# the measurement tools: profile_trace, profile_stages, reconcile_timing,
+# certify_tf, microbench
+# ---------------------------------------------------------------------------
+
+TINY_CAPS = {"max_points": 4096, "max_ng_points": 2048, "max_clusters": 16,
+             "max_cluster_points": 512, "max_tracks": 16,
+             "max_cluster_input": 4096, "clip_batch": 4}
+TINY_STAGES = ["mask_ground_points", "calculate_entropy_scores",
+               "spatial_clustering"]
+
+
+@pytest.fixture
+def tiny_build(monkeypatch):
+    """``tools.bench``'s smoke scale cut to a 2-frame scene and stages 1-3
+    with no tower, for the tools that run it."""
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.data import SyntheticDataset
+    from vilgod_tpu_torch.tools import bench
+
+    def build(scale):
+        return (waymo_config(capacity=TINY_CAPS, pipeline_active=TINY_STAGES),
+                SyntheticDataset(n_sequences=1, n_frames=2, seed=11,
+                                 n_ground=600, n_vehicles=1), None)
+
+    monkeypatch.setattr(bench, "build", build)
+    monkeypatch.setattr(bench, "clip_model_for", lambda *a: None)
+
+
+def test_profile_trace_aggregates_a_cpu_trace(smoke_run, capsys):
+    """The trace the runner wrote for the smoke run (a CPU run: no card
+    events) aggregates by the CPU's operators; ``main --trace`` prints the
+    table and a JSON line last."""
+    from vilgod_tpu_torch.tools import profile_trace as P
+
+    out, _ = smoke_run
+    path = out / "trace" / "synth_0.trace.json"
+    trace = json.loads(path.read_text())
+    rows, cats = P.aggregate(trace)
+    assert cats == P.CPU_CATEGORIES
+    names = [r[0] for r in rows]
+    assert len(names) == len(set(names)) and any(n.startswith("aten::")
+                                                 for n in names)
+    assert [r[1] for r in rows] == sorted((r[1] for r in rows), reverse=True)
+    ops = [e for e in trace["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert sum(r[2] for r in rows) == len(ops)
+    assert sum(r[1] for r in rows) == pytest.approx(
+        sum(e["dur"] for e in ops) / 1e6)
+    assert P.main(["--trace", str(path), "--top", "5"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(lines[-1])
+    assert len(line["top"]) == 5 and line["categories"] == ["cpu_op"]
+    assert line["top"][0]["name"] == rows[0][0]
+    assert len(lines) == 1 + 2 + 5
+
+
+def test_profile_trace_prefers_the_cards_work():
+    """In a trace with kernels, copies or sets, only those count; launch
+    counts and totals by name."""
+    from vilgod_tpu_torch.tools import profile_trace as P
+
+    ev = [{"ph": "X", "cat": "kernel", "name": "count_kernel<3, 1>",
+           "dur": 5.0}] * 3 + [
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 20.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::add", "dur": 100.0},
+        {"ph": "X", "cat": "user_annotation", "name": "spatial_clustering",
+         "dur": 500.0},
+        {"ph": "i", "cat": "kernel", "name": "marker"}]
+    rows, cats = P.aggregate({"traceEvents": ev})
+    assert cats == P.DEVICE_CATEGORIES
+    assert rows == [("Memcpy HtoD", pytest.approx(20e-6), 1),
+                    ("count_kernel<3, 1>", pytest.approx(15e-6), 3)]
+
+
+def test_profile_stages_prints_cold_and_warm(tiny_build, capsys):
+    from vilgod_tpu_torch.tools import profile_stages as S
+
+    assert S.main(["--scale", "smoke"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    budgets = json.loads(out[-1])["budgets"]
+    assert [b["name"] for b in budgets] == ["cold", "warm"]
+    for b in budgets:
+        assert set(b["stage_s"]) == set(TINY_STAGES) and b["frames"] == 2
+        assert 0 < sum(b["stage_s"].values()) <= b["wall_s"]
+    assert out[0].startswith("== cold: wall=")
+    assert sum(line.startswith("  mask_ground_points") for line in out) == 2
+
+
+def test_reconcile_timing_rows_sum_to_the_adjusted_wall(tiny_build, capsys):
+    """The prefix rows and the setup row sum to the adjusted wall of the
+    whole pipeline (by construction), each prefix's adjusted wall is its
+    wall less the idle sync, and the bench's budget prints beside it."""
+    from vilgod_tpu_torch.tools import reconcile_timing as RT
+
+    assert RT.main(["--scale", "smoke", "--passes", "1"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out[-1])
+    rows = line["stage_ms_per_frame"]
+    assert list(rows) == TINY_STAGES
+    assert line["setup_ms_per_frame"] + sum(rows.values()) == pytest.approx(
+        line["sum_check_ms_per_frame"], abs=0.01)
+    assert set(line["bench_stage_ms_per_frame"]) >= set(TINY_STAGES) | {
+        "host_setup_and_gaps"}
+    assert any(r.startswith("spatial_clustering") for r in out)
+
+    # the rows are the differences of the best prefix walls
+    walls = iter([5.0, 7.0, 6.0, 9.0, 10.0, 8.0, 12.0, 13.0])
+
+    def runner(cfg, seq, name, clip, device, k):
+        w = next(walls)
+        return {"adj_s": w - 0.5, "total_s": w, "sync1_s": 0.1,
+                "sync2_s": 0.5}
+
+    cfg = {"pipeline_active": TINY_STAGES}
+    b = RT.prefix_budget(cfg, None, "s", None, torch.device("cpu"), passes=2,
+                         runner=runner)
+    assert [p["adj_s"] for p in b["prefixes"]] == [4.5, 5.5, 7.5, 11.5]
+    assert b["stage_s"] == {"mask_ground_points": 1.0,
+                            "calculate_entropy_scores": 2.0,
+                            "spatial_clustering": 4.0}
+    assert b["setup_s"] + sum(b["stage_s"].values()) == b["adj_total_s"]
+
+
+def test_certification_fixture_pins_the_ports_ap(tmp_path, capsys):
+    """The port's numpy AP on the committed certification fixture equals
+    tests/fixtures/tf_cert_expected.json to 1e-5 (as tests/test_waymo_tf.py
+    holds the JAX package's); the CLI says the TF diff waits for
+    waymo_open_dataset; ``--regen`` writes only where it is told, the same
+    fixture; a drifted pin fails the CLI."""
+    from vilgod_tpu_torch.eval import waymo_detection_ap
+    from vilgod_tpu_torch.eval.waymo_tf import tf_available
+    from vilgod_tpu_torch.tools import certify_tf as C
+
+    assert C.FIXTURE == REPO / "tests" / "fixtures" / "tf_cert_annos.npz"
+    assert C.FIXTURE.exists() and C.EXPECTED.exists()
+    det_annos, gt_annos = C.load_fixture()
+    ap = waymo_detection_ap(det_annos, gt_annos)
+    expected = json.loads(C.EXPECTED.read_text())
+    assert len(expected) >= 6
+    for k, v in expected.items():
+        assert ap[k] == pytest.approx(v, abs=1e-5), k
+    assert C.numpy_drift(ap, expected) == {}
+
+    assert C.main([]) == 0
+    out = capsys.readouterr().out
+    assert "matches" in out
+    if not tf_available():
+        assert "waymo_open_dataset is not available" in out
+
+    assert C.main(["--regen", str(tmp_path)]) == 0
+    det2, gt2 = C.load_fixture(tmp_path / C.FIXTURE.name)
+    for a, b in zip(det_annos + gt_annos, det2 + gt2):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    regen = json.loads((tmp_path / C.EXPECTED.name).read_text())
+    assert regen.keys() == expected.keys()
+    for k in expected:
+        assert regen[k] == pytest.approx(expected[k], abs=2e-6)
+
+    moved = dict(expected)
+    key = next(iter(moved))
+    moved[key] += 1e-3
+    (tmp_path / "moved.json").write_text(json.dumps(moved))
+    assert C.main(["--expected", str(tmp_path / "moved.json")]) == 1
+    assert key in capsys.readouterr().out
+
+
+def test_microbench_smoke(monkeypatch, capsys):
+    """The microbench's sections on the CPU over a small scene: a row per
+    part, the chained scan at each k, the propagation's rounds, one JSON
+    line last; no kernel launches on the CPU."""
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.data import SyntheticDataset
+    from vilgod_tpu_torch.pipeline.runner import ZeroShotDetector
+    from vilgod_tpu_torch.tools import microbench as M
+
+    def build_state(scale, device):
+        cfg = waymo_config(capacity=TINY_CAPS)
+        seq = SyntheticDataset(n_sequences=1, n_frames=4, seed=11,
+                               n_ground=600, n_vehicles=1).sequence("synth_0")
+        return ZeroShotDetector(seq, "synth_0", cfg,
+                                device=device).state, cfg
+
+    monkeypatch.setattr(M, "build_state", build_state)
+    assert M.main(["--scale", "smoke", "--reps", "1", "--chains", "1,2"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    rows = json.loads(out[-1])["rows"]
+    parts = [r["part"] for r in rows]
+    assert parts[:4] == ["ground presort (batched 3-key sort, all frames)",
+                         "ground state scan (given presort)",
+                         "ground chained scan k=1 (8 frames)",
+                         "ground chained scan k=2 (8 frames)"]
+    for want in ("entropy_sequence", "dbscan_labels_paged", "count3 pass",
+                 "min-label pass", "propagation", "nearest pass",
+                 "knn_labels_paged", "render_cluster_views",
+                 "ViT image encode"):
+        assert any(want in p for p in parts), want
+    assert all(r["ms"] > 0 and r["launches"] == {} for r in rows)
+    rounds = [r["rounds"] for r in rows if "rounds" in r]
+    assert len(rounds) == 1 and rounds[0] >= 1
+    assert sum(line.startswith("== ") for line in out) == 4

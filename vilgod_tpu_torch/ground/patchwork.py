@@ -1,12 +1,15 @@
 """Patchwork++-style ground segmentation; the port of
-``vilgod_tpu/ground/patchwork.py`` (single-device scan).
+``vilgod_tpu/ground/patchwork.py`` (the single-device scans).
 
 The algorithm is the JAX package's (see its module docstring): RNR noise
 removal, the Concentric Zone Model over 504 patches, per-patch z-sorted
 tables with R-VPF vertical-plane removal and R-GPF iterative PCA, GLE
 gating, TGR temporal revert, and the A-GLE adaptive state carried from
 frame to frame. All patches run as one batch (the JAX package's vmap);
-the frame scan is a Python loop that carries the :class:`GroundState`.
+the frame scan is a Python loop that carries the :class:`GroundState`,
+after one batched presort of every frame. The chained scan
+(:func:`segment_sequence_chained`) runs k chunks of frames side by side,
+each step one batch of k frames with k states.
 
 Float sums over many terms (patch means and covariances, ring
 statistics) accumulate in float64 and round to float32 once: the result
@@ -257,9 +260,10 @@ def _plane_dist(pts, normal, d):
 
 def _select_seeds(z, active, is_zone0, th_seed, sensor_height,
                   cfg: GroundConfig):
-    """Seed selection over z-sorted patch points (batched)."""
+    """Seed selection over z-sorted patch points (batched); the sensor
+    height is one per patch (P,), or one for all."""
     margin = cfg.adaptive_seed_selection_margin * sensor_height
-    skip = is_zone0[:, None] & (z < margin)
+    skip = is_zone0[:, None] & (z < margin.reshape(-1, 1))
     cand = active & ~skip
     rank = torch.cumsum(cand.to(torch.int32), dim=1)
     lpr_sel = cand & (rank <= cfg.num_lpr)
@@ -272,8 +276,8 @@ def _select_seeds(z, active, is_zone0, th_seed, sensor_height,
 def _extract_piecewise(pts, valid, is_zone0, sensor_height,
                        cfg: GroundConfig):
     """R-VPF + R-GPF for every patch at once. pts (P, cap, 3) z-sorted
-    ascending per patch; returns (ground_sel, removed_vertical, normal,
-    mean, d, eigvals, n_ground)."""
+    ascending per patch, each patch's sensor height (P,); returns
+    (ground_sel, removed_vertical, normal, mean, d, eigvals, n_ground)."""
     z = pts[..., 2]
     removed = torch.zeros_like(valid)
     if cfg.enable_rvpf:
@@ -308,89 +312,111 @@ def _extract_piecewise(pts, valid, is_zone0, sensor_height,
 
 
 # ---------------------------------------------------------------------------
-# per-frame passes
+# per-frame passes, batched over a leading chain axis
 # ---------------------------------------------------------------------------
 
-def _presort_frame(points: torch.Tensor, mask: torch.Tensor,
-                   cfg: GroundConfig):
-    """State-free patch ordering of one frame: per-point patch id and the
-    (pid, z, index)-lexicographic order (stable sorts, least significant
-    key first), with the sorted cloud."""
-    n = points.shape[0]
+def _presort_frames(points: torch.Tensor, mask: torch.Tensor,
+                    cfg: GroundConfig):
+    """State-free patch ordering of a batch of frames, points (F, N, C),
+    mask (F, N): per-point patch ids (F, N), the sorted keys and the
+    (pid, z, index)-lexicographic order (F, N) (stable sorts, least
+    significant key first), each patch's first sorted position (F,
+    patches) and the sorted clouds (F, N, 3). One batched sort over every
+    frame, as the JAX package's ``segment_sequence`` presorts."""
+    f, n = mask.shape
     num_patches = _num_patches(cfg)
-    xyz = points[:, :3]
-    pid_geo = _point_patch_ids(xyz, cfg)
+    xyz = points[..., :3]
+    pid_geo = _point_patch_ids(xyz.reshape(-1, 3), cfg).reshape(f, n)
     key = torch.where(mask & (pid_geo >= 0), pid_geo,
                       num_patches).to(torch.int32)
-    by_z = torch.argsort(xyz[:, 2], stable=True)
-    order = by_z[torch.argsort(key[by_z], stable=True)]
-    sorted_key = key[order]
-    starts = torch.searchsorted(
-        sorted_key, torch.arange(num_patches, dtype=torch.int32,
-                                 device=points.device)).to(torch.int32)
-    return pid_geo, sorted_key, order, starts, xyz[order]
+    by_z = torch.argsort(xyz[..., 2], dim=1, stable=True)
+    order = torch.gather(by_z, 1, torch.argsort(
+        torch.gather(key, 1, by_z), dim=1, stable=True))
+    sorted_key = torch.gather(key, 1, order)
+    patches = torch.arange(num_patches, dtype=torch.int32,
+                           device=points.device).repeat(f, 1)
+    starts = torch.searchsorted(sorted_key, patches).to(torch.int32)
+    xyz_sorted = torch.gather(xyz, 1, order[..., None].expand(f, n, 3))
+    return pid_geo, sorted_key, order, starts, xyz_sorted
 
 
 def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
                        pid_geo, sorted_key, order, starts, xyz_sorted):
-    """State-dependent part of the segmentation of one presorted frame.
-    Returns (ground (N,) bool, new_state, aux): aux holds the per-patch
-    ``patch_ground``, ``normals``, ``means`` and ``n_ground`` and the
-    per-point RNR ``noise``."""
-    n = points.shape[0]
+    """State-dependent part of the segmentation of k presorted frames, one
+    per chain: points (k, N, C), mask (k, N), ``state`` with a leading
+    chain axis (``_stack_states``), the presort of :func:`_presort_frames`
+    for these k frames. The k frames' patches run as one batch of k x
+    patches. Returns (ground (k, N) bool, new_state, aux): aux holds the
+    per-patch ``patch_ground``, ``normals``, ``means`` and ``n_ground``
+    (k x patches, chain-major) and the per-point RNR ``noise`` (k, N)."""
+    k, n = mask.shape
     dev = points.device
     num_patches = _num_patches(cfg)
+    kp, kn = k * num_patches, k * n
     cap = cfg.patch_capacity
     _, _, _, patch_zone_np, patch_conc_np = _czm_geometry(cfg)
-    patch_zone = torch.from_numpy(patch_zone_np).to(dev)
-    patch_conc = torch.from_numpy(patch_conc_np).to(dev)
+    patch_zone = torch.from_numpy(patch_zone_np).to(dev).repeat(k)
+    patch_conc = torch.from_numpy(patch_conc_np).to(dev).repeat(k)
+    chain_of_patch = torch.arange(k, device=dev).repeat_interleave(
+        num_patches)
+    pt_off = (torch.arange(k, device=dev) * n)[:, None]
+    patch_off = (torch.arange(k, device=dev, dtype=torch.int32)
+                 * num_patches)[:, None]
 
-    xyz = points[:, :3]
-    intensity = (points[:, 3] if points.shape[1] > 3
-                 else torch.zeros(n, dtype=points.dtype, device=dev))
+    xyz = points[..., :3]
+    intensity = (points[..., 3] if points.shape[-1] > 3
+                 else torch.zeros((k, n), dtype=points.dtype, device=dev))
 
     # ---- RNR ----
     if cfg.enable_rnr:
-        r = torch.sqrt(xyz[:, 0] * xyz[:, 0] + xyz[:, 1] * xyz[:, 1])
-        ver_angle = torch.atan2(xyz[:, 2], r) * (180.0 / math.pi)
+        x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+        r = torch.sqrt(x * x + y * y)
+        ver_angle = torch.atan2(z, r) * (180.0 / math.pi)
         noise = ((ver_angle < cfg.rnr_ver_angle_thr)
-                 & (xyz[:, 2] < -state.sensor_height - 0.8)
+                 & (z < -state.sensor_height[:, None] - 0.8)
                  & (intensity < cfg.rnr_intensity_thr))
     else:
-        noise = torch.zeros(n, dtype=torch.bool, device=dev)
+        noise = torch.zeros((k, n), dtype=torch.bool, device=dev)
 
     usable = mask & ~noise
     patch_ids = torch.where(usable, pid_geo, -1)
+    # patch ids over the chains' patches (chain-major), -1 unusable
+    gpid = torch.where(patch_ids >= 0, patch_ids + patch_off, -1)
 
-    # ---- z-sorted per-patch tables from the presorted runs: rank among
-    # the non-noise entries of each patch is the table position ----
-    nz = (sorted_key < num_patches) & ~noise[order]
+    # ---- z-sorted per-patch tables from the presorted runs, the k frames
+    # end to end: rank among the non-noise entries of each patch is the
+    # table position ----
+    valid_key = sorted_key < num_patches
+    nz = (valid_key & ~torch.gather(noise, 1, order)).reshape(-1)
+    gkey = torch.where(valid_key, sorted_key + patch_off, kp).reshape(-1)
+    gstarts = (starts + pt_off).reshape(-1)
     cum = torch.cumsum(nz.to(torch.int32), 0, dtype=torch.int32)
-    start_of = starts[torch.clamp(sorted_key, max=num_patches - 1).long()]
+    start_of = gstarts[torch.clamp(gkey, max=kp - 1).long()]
     cum_before = torch.where(start_of > 0,
                              cum[torch.clamp(start_of - 1, min=0).long()], 0)
     pos = cum - 1 - cum_before
     in_table = nz & (pos < cap)
-    flat = torch.where(in_table, sorted_key * cap + pos, num_patches * cap).long()
-    idx_tab = torch.full((num_patches * cap + 1,), n, dtype=torch.int32,
-                         device=dev)
+    flat = torch.where(in_table, gkey * cap + pos, kp * cap).long()
+    idx_tab = torch.full((kp * cap + 1,), kn, dtype=torch.int32, device=dev)
     idx_tab[flat] = torch.where(
-        in_table, torch.arange(n, dtype=torch.int32, device=dev), n)
-    idx_tab = idx_tab[: num_patches * cap]
-    tab_ok = idx_tab < n
+        in_table, torch.arange(kn, dtype=torch.int32, device=dev), kn)
+    idx_tab = idx_tab[: kp * cap]
+    tab_ok = idx_tab < kn
     patch_pts = torch.where(
-        tab_ok[:, None], xyz_sorted[torch.clamp(idx_tab, max=n - 1).long()],
-        0.0).reshape(num_patches, cap, 3)
-    table_mask = tab_ok.reshape(num_patches, cap)
+        tab_ok[:, None],
+        xyz_sorted.reshape(kn, 3)[torch.clamp(idx_tab, max=kn - 1).long()],
+        0.0).reshape(kp, cap, 3)
+    table_mask = tab_ok.reshape(kp, cap)
 
-    patch_n_pts = torch.zeros(num_patches, dtype=torch.int32, device=dev)
-    patch_n_pts.index_add_(0, torch.clamp(patch_ids, min=0).long(),
-                           (patch_ids >= 0).to(torch.int32))
+    patch_n_pts = torch.zeros(kp, dtype=torch.int32, device=dev)
+    patch_n_pts.index_add_(0, torch.clamp(gpid, min=0).reshape(-1).long(),
+                           (gpid >= 0).reshape(-1).to(torch.int32))
 
     # ---- per-patch piecewise ground extraction ----
     is_zone0 = patch_zone == 0
     ground_sel, _, normals, means, ds, eigs, n_ground = _extract_piecewise(
-        patch_pts, table_mask, is_zone0, state.sensor_height, cfg)
+        patch_pts, table_mask, is_zone0, state.sensor_height[chain_of_patch],
+        cfg)
 
     # ---- GLE gating ----
     enough = patch_n_pts >= cfg.num_min_pts
@@ -406,8 +432,9 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
     conc_clamped = torch.clamp(patch_conc, max=cfg.num_rings_of_interest - 1)
     cc = conc_clamped.long()
     is_upright = uprightness > cfg.uprightness_thr
-    is_not_elevated = near & (elevation < state.elevation_thr[cc])
-    is_flat = near & (flatness < state.flatness_thr[cc])
+    is_not_elevated = near & (elevation
+                              < state.elevation_thr[chain_of_patch, cc])
+    is_flat = near & (flatness < state.flatness_thr[chain_of_patch, cc])
     is_heading_out = heading < 0.0
 
     store = enough & is_upright & is_not_elevated & near
@@ -419,12 +446,14 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
     # ---- TGR ----
     if cfg.enable_tgr:
         num_r = cfg.num_rings_of_interest
-        ring_of = torch.where(near, patch_conc, num_r).long()
+        ring_of = (torch.where(near, patch_conc, num_r)
+                   + chain_of_patch * (num_r + 1)).long()
 
         def ring_sum(v):
-            acc = torch.zeros(num_r + 1, dtype=torch.float64, device=dev)
-            return acc.index_add_(0, ring_of, v.to(torch.float64))[:num_r] \
-                .to(torch.float32)
+            acc = torch.zeros(k * (num_r + 1), dtype=torch.float64,
+                              device=dev)
+            acc.index_add_(0, ring_of, v.to(torch.float64))
+            return acc.reshape(k, num_r + 1)[:, :num_r].to(torch.float32)
 
         f_sum = ring_sum(torch.where(store, flatness, 0.0))
         f_cnt = ring_sum(store.to(torch.float32))
@@ -436,7 +465,8 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
         f_mean = torch.where(f_cnt >= 2, f_mean, 0.0)
         f_std = torch.where(f_cnt >= 2, f_std, 0.0)
 
-        mu = f_mean[cc] + 1.5 * f_std[cc]
+        mu = (f_mean[chain_of_patch, cc]
+              + 1.5 * f_std[chain_of_patch, cc])
         prob_flatness = 1.0 / (1.0 + torch.exp(
             (flatness - mu) / torch.clamp(mu / 10, min=1e-12)))
         prob_flatness = torch.where(mu > 0, prob_flatness, 0.0)
@@ -449,14 +479,16 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
 
     # ---- point-level assembly (sorted domain, one unsort scatter) ----
     gv_flat = (ground_sel & patch_ground[:, None]).reshape(-1)
-    pg_sorted = in_table & gv_flat[torch.clamp(flat, max=num_patches * cap - 1)]
-    code = torch.zeros(n, dtype=torch.int8, device=dev)
-    code[order] = in_table.to(torch.int8) + pg_sorted.to(torch.int8)
+    pg_sorted = in_table & gv_flat[torch.clamp(flat, max=kp * cap - 1)]
+    code = torch.zeros(kn, dtype=torch.int8, device=dev)
+    code[(order + pt_off).reshape(-1)] = (in_table.to(torch.int8)
+                                          + pg_sorted.to(torch.int8))
+    code = code.reshape(k, n)
     point_patch_ground = code == 2
     # points beyond a patch's table capacity classify against its plane
     covered = code >= 1
     overflow = usable & (patch_ids >= 0) & ~covered
-    pid_safe = torch.clamp(patch_ids, min=0).long()
+    pid_safe = torch.clamp(gpid, min=0).long()
     dist_overflow = _dot3(xyz, normals[pid_safe]) + ds[pid_safe]
     overflow_ground = (overflow & patch_ground[pid_safe]
                        & (dist_overflow < cfg.th_dist))
@@ -469,50 +501,72 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
     return ground, new_state, aux
 
 
+def _stack_states(states) -> GroundState:
+    """States with a leading chain axis, one per given state."""
+    return GroundState(*(torch.stack(x) for x in zip(*states)))
+
+
+def _chain_state(state: GroundState, i: int) -> GroundState:
+    """Chain ``i``'s state of a stacked one."""
+    return GroundState(*(x[i] for x in state))
+
+
 def segment_ground(points: torch.Tensor, mask: torch.Tensor,
                    state: GroundState, cfg: GroundConfig):
     """Segment one frame. points (N, 4+) = [x, y, z, intensity, ...] in the
     sensor frame, already z-offset corrected by the caller; mask (N,).
     Returns (ground (N,) bool, new_state, aux), on the device of
     ``points``; one step of :func:`segment_sequence`."""
-    return _segment_presorted(points, mask, state, cfg,
-                              *_presort_frame(points, mask, cfg))
+    g, new_state, aux = _segment_presorted(
+        points[None], mask[None], _stack_states([state]), cfg,
+        *_presort_frames(points[None], mask[None], cfg))
+    return g[0], _chain_state(new_state, 0), {**aux, "noise": aux["noise"][0]}
 
 
 def _ring_buffer_append(buf, cnt, ptr, values, sel, max_storage):
-    """Append the ``sel``-ected ``values`` to one ring buffer."""
-    k = torch.cumsum(sel.to(torch.int32), 0, dtype=torch.int32) - 1
-    write_pos = (ptr + k) % max_storage
+    """Append each row's ``sel``-ected ``values`` to that row's ring
+    buffer: buf (B, S), cnt and ptr (B,), values and sel (B, P)."""
+    k = torch.cumsum(sel.to(torch.int32), 1, dtype=torch.int32) - 1
+    write_pos = (ptr[:, None] + k) % max_storage
     idx = torch.where(sel, write_pos, max_storage).long()
-    buf = torch.cat([buf, torch.zeros(1, dtype=buf.dtype, device=buf.device)])
-    buf[idx] = torch.where(sel, values, 0.0)
-    n_new = sel.sum(dtype=torch.int32)
-    return (buf[:max_storage], torch.clamp(cnt + n_new, max=max_storage),
+    buf = torch.cat([buf, torch.zeros((buf.shape[0], 1), dtype=buf.dtype,
+                                      device=buf.device)], dim=1)
+    buf.scatter_(1, idx, torch.where(sel, values, 0.0))
+    n_new = sel.sum(dim=1, dtype=torch.int32)
+    return (buf[:, :max_storage], torch.clamp(cnt + n_new, max=max_storage),
             (ptr + n_new) % max_storage)
 
 
 def _update_state(state: GroundState, store, elevation, flatness, ring,
                   cfg: GroundConfig) -> GroundState:
-    """A-GLE update: append this frame's stored patches to the per-ring
-    histories and re-derive the adaptive thresholds and sensor height."""
-    num_r = cfg.num_rings_of_interest
-    elev, flat = [], []
-    for r in range(num_r):
-        sel = store & (ring == r)
-        elev.append(_ring_buffer_append(state.elev_buf[r], state.elev_cnt[r],
-                                        state.elev_ptr[r], elevation, sel,
-                                        cfg.max_storage))
-        flat.append(_ring_buffer_append(state.flat_buf[r], state.flat_cnt[r],
-                                        state.flat_ptr[r], flatness, sel,
-                                        cfg.max_storage))
-    elev_buf, elev_cnt, elev_ptr = (torch.stack(x) for x in zip(*elev))
-    flat_buf, flat_cnt, flat_ptr = (torch.stack(x) for x in zip(*flat))
+    """A-GLE update of every chain: append each chain's stored patches to
+    its per-ring histories and re-derive its adaptive thresholds and
+    sensor height. The patch arrays are (k x patches,), chain-major."""
+    num_r, s = cfg.num_rings_of_interest, cfg.max_storage
+    k = state.elev_buf.shape[0]
+    store, elevation, flatness, ring = (
+        x.reshape(k, -1) for x in (store, elevation, flatness, ring))
+    rings = torch.arange(num_r, device=ring.device, dtype=ring.dtype)
+    sel = (store[:, None, :] & (ring[:, None, :] == rings[None, :, None])
+           ).reshape(k * num_r, -1)
+
+    def append(buf, cnt, ptr, values):
+        values = values[:, None, :].expand(k, num_r, values.shape[1])
+        buf, cnt, ptr = _ring_buffer_append(
+            buf.reshape(k * num_r, s), cnt.reshape(-1), ptr.reshape(-1),
+            values.reshape(k * num_r, -1), sel, s)
+        return (buf.reshape(k, num_r, s), cnt.reshape(k, num_r),
+                ptr.reshape(k, num_r))
+
+    elev_buf, elev_cnt, elev_ptr = append(state.elev_buf, state.elev_cnt,
+                                          state.elev_ptr, elevation)
+    flat_buf, flat_cnt, flat_ptr = append(state.flat_buf, state.flat_cnt,
+                                          state.flat_ptr, flatness)
 
     def stats(buf, cnt):
-        m = (torch.arange(cfg.max_storage, device=buf.device)[None, :]
-             < cnt[:, None])
-        mean = _sum64(torch.where(m, buf, 0.0), 1) / torch.clamp(cnt, min=1)
-        var = _sum64(torch.where(m, (buf - mean[:, None]) ** 2, 0.0), 1) \
+        m = torch.arange(s, device=buf.device) < cnt[..., None]
+        mean = _sum64(torch.where(m, buf, 0.0), -1) / torch.clamp(cnt, min=1)
+        var = _sum64(torch.where(m, (buf - mean[..., None]) ** 2, 0.0), -1) \
             / torch.clamp(cnt - 1, min=1)
         return mean, torch.sqrt(torch.clamp(var, min=0.0))
 
@@ -522,7 +576,7 @@ def _update_state(state: GroundState, store, elevation, flatness, ring,
     mult = torch.tensor([3.0] + [2.0] * (num_r - 1), dtype=torch.float32,
                         device=e_mean.device)
     return GroundState(
-        sensor_height=torch.where(elev_cnt[0] >= 2, -e_mean[0],
+        sensor_height=torch.where(elev_cnt[:, 0] >= 2, -e_mean[:, 0],
                                   state.sensor_height),
         elevation_thr=torch.where(elev_cnt >= 2, e_mean + mult * e_std,
                                   state.elevation_thr),
@@ -533,19 +587,59 @@ def _update_state(state: GroundState, store, elevation, flatness, ring,
     )
 
 
+def _scan(points: torch.Tensor, mask: torch.Tensor, cfg: GroundConfig,
+          z_offset: float, chains: int):
+    """The A-GLE/TGR scan of ``chains`` consecutive chunks of the frames
+    side by side, every frame presorted first in one batch. Returns
+    (ground (F, N), the chains' final states, stacked)."""
+    points = points.clone()
+    points[..., 2] = points[..., 2] + (-z_offset)
+    return _scan_presorted(points, mask, _presort_frames(points, mask, cfg),
+                           cfg, chains)
+
+
+def _scan_presorted(points, mask, presorted, cfg: GroundConfig, chains: int):
+    """The state-threaded part of :func:`_scan` over z-offset frames and
+    their presort: step t segments frame t of every chunk as one batch."""
+    f, n = mask.shape
+    assert f % chains == 0, (f, chains)
+    steps = f // chains
+    pre = [x.reshape(chains, steps, *x.shape[1:])
+           for x in (points, mask, *presorted)]
+    state = _stack_states([init_ground_state(cfg, device=points.device)]
+                          * chains)
+    ground = torch.empty((chains, steps, n), dtype=torch.bool,
+                         device=points.device)
+    for t in range(steps):
+        ground[:, t], state, _ = _segment_presorted(
+            *(x[:, t] for x in pre[:2]), state, cfg,
+            *(x[:, t] for x in pre[2:]))
+    return ground.reshape(f, n), state
+
+
 def segment_sequence(points: torch.Tensor, mask: torch.Tensor,
                      cfg: GroundConfig, z_offset: float = 0.0):
     """Ground segmentation over a frame sequence, carrying the A-GLE/TGR
     state from frame to frame. points (F, N, 4+) sensor frame, mask
     (F, N). The z offset mirrors the reference's ground masking call.
     Returns (ground (F, N) bool, final state)."""
-    points = points.clone()
-    points[..., 2] = points[..., 2] + (-z_offset)
-    state = init_ground_state(cfg, device=points.device)
-    ground = []
-    for f in range(points.shape[0]):
-        pre = _presort_frame(points[f], mask[f], cfg)
-        g, state, _ = _segment_presorted(points[f], mask[f], state, cfg,
-                                         *pre)
-        ground.append(g)
-    return torch.stack(ground), state
+    ground, state = _scan(points, mask, cfg, z_offset, 1)
+    return ground, _chain_state(state, 0)
+
+
+def segment_sequence_chained(points: torch.Tensor, mask: torch.Tensor,
+                             cfg: GroundConfig, z_offset: float,
+                             chains: int) -> torch.Tensor:
+    """:func:`segment_sequence` as ``chains`` concurrent scans of
+    consecutive frame chunks on one device, each with its own A-GLE/TGR
+    state and warm-up; the JAX package's ``segment_sequence_chained``.
+
+    The scan's step is small (the patches' 3x3 PCAs), so batching k
+    chunks' frames into one step cuts the sequential steps, and their
+    launches, k-fold. Contract: the result equals the per-chunk
+    :func:`segment_sequence` scans concatenated; the first frames of each
+    chunk see un-adapted thresholds as frame 0 of any scan does, so the
+    masks differ from the single scan's at the chunk heads. The stage
+    takes it with ``parallel.ground_chains`` (default off). Returns
+    ground (F, N) bool; F must be a multiple of ``chains``."""
+    return _scan(points, mask, cfg, z_offset, chains)[0]

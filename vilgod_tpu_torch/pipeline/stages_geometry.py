@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ground.patchwork import ground_config_from_cfg, segment_sequence
+from ..ground.patchwork import (ground_config_from_cfg, segment_sequence,
+                               segment_sequence_chained)
 from ..ops import random as jrandom
 from ..ops import segment as seg_ops
 from ..ops.banded import CELL
@@ -64,11 +65,24 @@ def _compact_sequence(points, mask, ground, transforms, cap_ng: int):
     return ng_xyz, valid, src, cnt
 
 
+def ground_chains(cfg, f_pad: int) -> int:
+    """The chains of the ground scan: ``parallel.ground_chains`` where it
+    divides the padded frames into chunks of at least 8 (the adaptive
+    thresholds settle from frame 2), else 1; the JAX package's gate."""
+    chains = int(cfg.get("parallel", {}).get("ground_chains", 1))
+    if chains > 1 and f_pad % chains == 0 and f_pad // chains >= 8:
+        return chains
+    return 1
+
+
 def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
                        z_offset: float = 1.723, **_):
     """Patchwork++-style ground segmentation scanned over the frames, then
     the non-ground compaction. Only the (F,) occupancy counts reach the
-    host (they pick the shape bucket of the later stages)."""
+    host (they pick the shape bucket of the later stages). With
+    ``parallel.ground_chains`` = k (:func:`ground_chains`) the scan runs k
+    frame chunks side by side (``segment_sequence_chained``), whose masks
+    differ from the single scan's at the chunk heads."""
     if state.done.get("mask_ground_points"):
         return
     gcfg = ground_config_from_cfg(cfg, min_range=min_range)
@@ -76,16 +90,14 @@ def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
     f_pad = frame_bucket(f_total)
     n_pts = state.points_bucket()
     cap_ng = state.caps.max_ng_points
-    chains = int(cfg.get("parallel", {}).get("ground_chains", 1))
-    if chains > 1 and f_pad % chains == 0 and f_pad // chains >= 8:
-        # the JAX package runs segment_sequence_chained here, whose masks
-        # differ from the single scan's at chain heads
-        raise NotImplementedError(
-            "parallel.ground_chains > 1 is not ported to vilgod_tpu_torch "
-            "yet: ROADMAP queue 1 item 11 (multi-GPU)")
     points = state.device("points", f_pad, n_pts)
     mask = state.device("points_mask", f_pad, n_pts)
-    ground = segment_sequence(points, mask, gcfg, z_offset)[0] & mask
+    chains = ground_chains(cfg, f_pad)
+    if chains > 1:
+        ground = segment_sequence_chained(points, mask, gcfg, z_offset,
+                                          chains) & mask
+    else:
+        ground = segment_sequence(points, mask, gcfg, z_offset)[0] & mask
     ng_xyz, ng_mask, ng_src, cnts = _compact_sequence(
         points, mask, ground, _transforms_to_ref(state, f_pad), cap_ng)
     state.put_device("ground_mask", ground, f_pad, n_pts)
@@ -263,6 +275,26 @@ def _post(lab_raw_in, probs, ngm, xyz, ent, prob_threshold, ephe_percentile,
     return lab, probs, cnt, det_center, det_static, table
 
 
+def window_origins(ng_xyz, ng_mask, frame_valid, f0: int, chunk: int,
+                   n_frames_window: int) -> torch.Tensor:
+    """Each page's grid origin (chunk, 2): the corner of its frame WINDOW,
+    which covers the selected data and the frame's full query cloud, so
+    the label transfer reuses the data's sort with a shared grid."""
+    f_real = int(frame_valid.sum())
+    corners = []
+    for i in range(chunk):
+        lo = min(max(f0 + i, 0), max(f_real - n_frames_window, 0))
+        mins = []
+        for rel in range(n_frames_window):
+            f = min(lo + rel, ng_xyz.shape[0] - 1)
+            m = ng_mask[f] & frame_valid[f] & (lo + rel == f)
+            mins.append(torch.where(m[:, None], ng_xyz[f][:, :2],
+                                    1e9).amin(dim=0))
+        mn = torch.stack(mins).amin(dim=0)
+        corners.append(torch.where(mn >= 1e9, 0.0, mn))
+    return (torch.floor(torch.stack(corners) / CELL) - 1.0) * CELL
+
+
 def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
                          f0: int, seed: int, chunk: int = 8,
                          n_frames_window: int = 2, cap_in: int = 65536,
@@ -292,22 +324,8 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
         flat_mask = fmask.reshape(chunk * cap_in)
         page_ids = torch.arange(chunk, dtype=torch.int32, device=dev)
         pages = page_ids.repeat_interleave(cap_in)
-        # per-page grid origin = the frame WINDOW's corner: it covers the
-        # selected data and the frame's full query cloud, so the transfer
-        # reuses the data sort with a shared grid
-        f_real = int(frame_valid.sum())
-        corners = []
-        for i in range(chunk):
-            lo = min(max(f0 + i, 0), max(f_real - n_frames_window, 0))
-            mins = []
-            for rel in range(n_frames_window):
-                f = min(lo + rel, ng_xyz.shape[0] - 1)
-                m = ng_mask[f] & frame_valid[f] & (lo + rel == f)
-                mins.append(torch.where(m[:, None], ng_xyz[f][:, :2],
-                                        1e9).amin(dim=0))
-            mn = torch.stack(mins).amin(dim=0)
-            corners.append(torch.where(mn >= 1e9, 0.0, mn))
-        orig = (torch.floor(torch.stack(corners) / CELL) - 1.0) * CELL
+        orig = window_origins(ng_xyz, ng_mask, frame_valid, f0, chunk,
+                              n_frames_window)
         presorted = paged_cell_sort(flat_feats, flat_mask, pages, chunk,
                                     origins=orig)
         raw_labels, raw_probs = dbscan_labels_paged(

@@ -15,10 +15,14 @@ scene (one 8-frame sequence, no warm-up, one pass) and a narrow f32 tower,
 and runs on the CPU; full scale runs on ``cuda``.
 
 Prints one JSON line with bench.py's fields but ``vs_baseline`` (its
-baseline is a TPU's), ``delta_ap_max`` null (it waits for the port of
-``tools/parity_oracle.measure_delta_ap``, ROADMAP queue 1 item 12), and
-``device``: the card's name and power limit as nvidia-smi gives them (the
-CPU: "cpu"). ``stage_ms_per_frame`` is bench.py's budget: one warm
+baseline is a TPU's), and ``device``: the card's name and power limit as
+nvidia-smi gives them (the CPU: "cpu"). ``delta_ap_max`` is bench.py's
+composed reference-parity number: at full scale, untimed, the port's
+``tools/parity_oracle.measure_delta_ap`` on bench.py's 24-frame parity
+scene (``tools/scenes.SCENE``) at the full caps, its per-class line on
+stderr; a failure of that measurement fails the bench (bench.py prints
+null instead). At ``--scale smoke`` it is null, as bench.py skips it
+there. ``stage_ms_per_frame`` is bench.py's budget: one warm
 sequence of the timed scene runs untraced for its wall time, then again
 under ``torch.profiler`` with each stage in its span; a stage's row is the
 device time that starts inside its span (on the card its kernels, copies
@@ -203,6 +207,24 @@ def geometry_aps(cfg, ds, device):
             for c in ("VEHICLE", "PEDESTRIAN", "CYCLIST")], n_det
 
 
+def parity_delta_ap(cfg, device) -> float:
+    """bench.py's |dAP|: the port's geometry stages feed both its table
+    decision stages and the transcribed reference oracle on the 24-frame
+    parity scene; prints the per-class line, returns ``delta_ap_max``."""
+    from ..data import SyntheticDataset
+    from .parity_oracle import measure_delta_ap
+    from .scenes import SCENE
+
+    ds = SyntheticDataset(**SCENE)
+    out = measure_delta_ap(cfg, ds, ds.sequence_names()[0], device=device)
+    print("# parity dAP: " + " ".join(
+        f"{c}={v['table']:.3f}/{v['oracle']:.3f}(d={v['delta']:.3f})"
+        for c, v in out["per_class"].items())
+        + f" n_truncated={out['n_truncated']} dets={out['n_dets_table']}/"
+        f"{out['n_dets_oracle']}", file=sys.stderr)
+    return out["delta_ap_max"]
+
+
 def run_bench(scale: str, device) -> dict:
     cfg, ds, warm = build(scale)
     clip_model = clip_model_for(scale, cfg, device)
@@ -242,9 +264,13 @@ def run_bench(scale: str, device) -> dict:
     print(f"# geometry-only: vehicle_ap={vehicle_ap} ped_ap={ped_ap:.4f} "
           f"cyc_ap={cyc_ap:.4f} dets={n_geo} quality_ok={quality_ok}",
           file=sys.stderr)
-    print("# delta_ap_max: null; it waits for the port of "
-          "tools/parity_oracle.measure_delta_ap (ROADMAP queue 1 item 12)",
-          file=sys.stderr)
+    delta_ap = None
+    if scale == "full":
+        delta_ap = parity_delta_ap(cfg, device)
+    else:
+        print("# delta_ap_max: null at --scale smoke (the port's "
+              "tools/parity_oracle.measure_delta_ap runs at full scale)",
+              file=sys.stderr)
     return {
         "metric": "e2e_frames_per_sec",
         "value": round(fps, 3),
@@ -253,7 +279,7 @@ def run_bench(scale: str, device) -> dict:
         "ped_ap": ped_ap,
         "cyc_ap": cyc_ap,
         "quality_ok": quality_ok,
-        "delta_ap_max": None,
+        "delta_ap_max": delta_ap,
         "platform": platform,
         "stage_ms_per_frame": stage_ms,
         "stage_sum_ms_per_frame": sum_ms,

@@ -30,6 +30,19 @@ DENSE_RADIUS = 0.5
 DENSE_CLUSTER_INPUT = 16000
 
 
+def main_path(scale: str = "full"):
+    """(config, dataset) of the main path: ``SCENE`` at ``CAPS`` through
+    ``STAGES``; at ``"smoke"`` the bench's smoke scene, caps and stages
+    (``tools/bench.build``)."""
+    if scale == "full":
+        from ..data import SyntheticDataset
+        return (waymo_config(capacity=CAPS, pipeline_active=STAGES),
+                SyntheticDataset(**SCENE))
+    from .bench import build
+    cfg, ds, _ = build("smoke")
+    return cfg, ds
+
+
 def dense_config():
     """The dense configuration: stages 1-3 with a 0.5 m entropy radius and
     a 16000-point cluster input."""

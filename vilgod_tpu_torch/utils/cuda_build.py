@@ -23,6 +23,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+# this process's nvcc builds started and libraries loaded, by source name
+# (a warm pipeline run starts and loads none: tools/soak.py holds it)
+BUILDS: dict[str, int] = {}
+LOADS: dict[str, int] = {}
 
 
 def source_files(source: Path) -> list[Path]:
@@ -80,6 +84,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
+        BUILDS[self.source.name] = BUILDS.get(self.source.name, 0) + 1
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True), tmp
 
@@ -104,6 +109,7 @@ class CudaLibrary:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.build()))
+                LOADS[self.source.name] = LOADS.get(self.source.name, 0) + 1
                 for name, argtypes in self.signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
