@@ -87,6 +87,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 5 % of the first's; cold and warm frames/s, peaks and stage
    seconds printed, and the chained scan timed at k = 1, 5, 25 on the
    first sequence's 200-frame bucket;
+3f. the multi-device layer (``vilgod_tpu_torch.parallel``) on the one
+   card, its shards logical shards of cuda:0 (``parallel.local_devices``
+   replaced for the phase), on the parity scene at 32 frames (a shard of
+   16 holds the 15-frame window) at phase 3's caps: (b) the nine stages
+   through ``run_sequences`` with phase 3's ViT-B/16 tower, on one device
+   and over 2 shards with ``shard_ground`` off (the sharded entropy,
+   clustering, filter and classification taken; kernels 1-5 each launched
+   in the sharded run): ground masks, entropy, labels, probabilities,
+   detections, planes and track ids equal; classes equal but where the
+   two runs' winning scores lie within ``TIE_TOL`` (JAX's tie rule; each
+   flip printed); boxes of the detections whose classes agree within
+   ``BOX_TOL`` m; launches per stage of both runs, and stage seconds of
+   both, run again in the other order (one device, 2 shards, 2 shards,
+   one device; the dense configuration too); then
+   stage 1 over 2 shards with ``shard_ground`` on: its masks equal the
+   per-chunk scans; (a) each sharded function on 2 and 4 shards on the
+   arguments the one-device run gave its counterpart, held to that
+   counterpart's output: ``sharded_entropy`` (2 shards, the 32 real
+   frames and 31 in the 32-frame bucket; 4 shards of 8 frames must raise)
+   bit-equal, ``sharded_ground`` equal to the per-chunk scans,
+   ``sharded_cluster_chunk`` and ``sharded_filter_metrics`` bit-equal,
+   ``global_detection_count`` the count; (c) the dense configuration's
+   stages 1-3 on one device and over 2 shards: equal, kernels 6-9 each
+   launched in the sharded run;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
    banded kernels also on a forced full-width (overflow) call each, small
@@ -178,6 +202,25 @@ SOAK_FRAMES = 199
 SOAK_CHAINS = (1, 5, 25)
 MICROBENCH_REPS = 2
 Z_OFFSET = 1.723
+# phase 3f: the parity scene at 32 frames (a shard of 2 holds the 15-frame
+# window), the logical shards of the one card, and the tolerances of the
+# sharded classification (JAX's tie rule of tests/test_parallel.py: a
+# class may flip only where the two runs' winning scores lie this close)
+SHARD_FRAMES = 32
+SHARDS = (2, 4)
+TIE_TOL = 1e-4
+BOX_TOL = 1e-4
+# the state fields each stage decides, as phase 3f compares them
+STAGE_FIELDS = {
+    "mask_ground_points": ("ground_mask",),
+    "calculate_entropy_scores": ("ng_entropy",),
+    "spatial_clustering": ("labels", "probs", "det_n", "det_center",
+                           "det_static"),
+    "filter_detections": ("det_valid", "plane_ref"),
+    "track_clusters": ("det_tid",),
+    "classification": ("det_cls", "det_score"),
+    "evaluate_sequence": ("det_box", "det_cls", "det_valid"),
+}
 # the card-vs-CPU tower: narrow, bf16, 64-wide heads (the fused path)
 CHECK_CLIP = dict(patch_size=32, vision_width=128, vision_layers=2,
                   vision_heads=2, embed_dim=64, text_width=64, text_heads=1,
@@ -1570,6 +1613,327 @@ def check_tools(ds, cfg, geo_state, kernels, smi):
                            if "chained" in r["part"]}}
 
 
+def launch_counts(mods):
+    return {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+class StageRecord:
+    """While entered, each stage of the runner's registry records, after it
+    runs, the kernel launches it made and host copies of the state fields
+    it decides (``STAGE_FIELDS``)."""
+
+    def __init__(self, mods):
+        from vilgod_tpu_torch.pipeline.runner import STAGE_REGISTRY
+        self.registry, self.mods = STAGE_REGISTRY, mods
+        self.fields, self.launches = {}, {}
+
+    def __enter__(self):
+        self.saved = dict(self.registry)
+        for name, fn in self.saved.items():
+            self.registry[name] = self._wrap(name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        self.registry.update(self.saved)
+
+    def _wrap(self, name, fn):
+        import numpy as np
+
+        def run(state, cfg, **kw):
+            before = launch_counts(self.mods)
+            fn(state, cfg, **kw)
+            after = launch_counts(self.mods)
+            self.launches[name] = {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}
+            self.fields[name] = {f: np.array(getattr(state, f))
+                                 for f in STAGE_FIELDS.get(name, ())}
+        return run
+
+
+class Patched:
+    """While entered, ``module.<name>`` of each name is replaced: by
+    ``value`` where one is given, else by a spy that records each call's
+    arguments and result in ``calls[name]`` and passes it through."""
+
+    def __init__(self, module, names, value=None):
+        self.module, self.names, self.value = module, names, value
+        self.calls = {n: [] for n in names}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.module, n, self.value if self.value is not None
+                    else self._spy(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+    def _spy(self, name, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls[name].append((args, kw, out))
+            return out
+        return run
+
+
+def shards_of(d):
+    """``parallel.local_devices`` giving ``d`` logical shards of cuda:0."""
+    import torch
+    return lambda device: [torch.device("cuda", 0)] * d
+
+
+def check_same(name, a, b):
+    """Bit-equal (NaN where NaN), else fail with the count that differ."""
+    import torch
+    a, b = (torch.as_tensor(x).cpu() for x in (a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"{name}: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+    differ = a != b
+    if a.is_floating_point():
+        differ &= ~(torch.isnan(a) & torch.isnan(b))
+    if bool(differ.any()):
+        raise AssertionError(f"{name}: sharded differs from the single "
+                             f"device on {int(differ.sum())} values")
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_sharded_functions(calls, parallel, stages_geometry, smi):
+    """Phase 3f (a): each sharded function of ``vilgod_tpu_torch.parallel``
+    on meshes of 2 and 4 logical shards of cuda:0, on the arguments the
+    single-device run of the 32-frame scene gave its counterparts
+    (``calls``), against that counterpart on the card."""
+    import torch
+    from vilgod_tpu_torch.ground.patchwork import segment_sequence
+    from vilgod_tpu_torch.ops.entropy import entropy_sequence
+
+    mesh = {d: parallel.make_mesh(devices=shards_of(d)(None)) for d in SHARDS}
+    out = {"device": smi}
+
+    (frames, masks, fv), kw, single = calls["entropy_sequence"][0]
+    ent = {"window": kw["window"], "single_s": None}
+    masks31, fv31 = masks.clone(), fv.clone()
+    masks31[SHARD_FRAMES - 1] = False
+    fv31[SHARD_FRAMES - 1] = False
+    for f_real, m, v, want in ((SHARD_FRAMES, masks, fv, single),
+                               (SHARD_FRAMES - 1, masks31, fv31, None)):
+        if want is None:
+            want, ent["single_s"] = timed(
+                lambda: entropy_sequence(frames, m, v, **kw))
+        got, sec = timed(lambda: parallel.sharded_entropy(
+            mesh[2], frames, m, f_real=f_real, **kw))
+        check_same(f"sharded_entropy (D=2, f_real {f_real})", got, want)
+        ent[f"d2_f_real_{f_real}_s"] = sec
+    try:
+        parallel.sharded_entropy(mesh[4], frames, masks, **kw)
+    except ValueError as e:
+        ent["d4_raises"] = str(e)
+    else:
+        raise AssertionError("sharded_entropy took 4 shards of 8 frames, "
+                             "fewer than the window")
+    out["sharded_entropy"] = ent
+
+    (points, mask, gcfg, z), _, _ = calls["segment_sequence"][0]
+    ground = {}
+    for d in SHARDS:
+        step = points.shape[0] // d
+        want, ground[f"per_chunk_d{d}_s"] = timed(lambda: torch.cat([
+            segment_sequence(points[i:i + step], mask[i:i + step], gcfg,
+                             z)[0] for i in range(0, points.shape[0], step)]))
+        got, ground[f"d{d}_s"] = timed(lambda: parallel.sharded_ground(
+            mesh[d], points, mask, gcfg, z))
+        check_same(f"sharded_ground (D={d})", got, want)
+        ground[f"d{d}_ground_points"] = int((got & mask).sum())
+        if d == 2:
+            out["per_chunk_d2"] = want & mask
+    out["sharded_ground"] = ground
+
+    args, kw, single = calls["cluster_frames_chunk"][0]
+    cluster = {"pages": kw["chunk"]}
+    for d in SHARDS:
+        got, cluster[f"d{d}_s"] = timed(lambda: parallel.sharded_cluster_chunk(
+            mesh[d], stages_geometry.cluster_frames_chunk, args[:4], args[4],
+            args[5], args[6], **kw))
+        for name, a, b in zip(("labels", "probs", "det_n", "det_center",
+                               "det_static", "table"), got, single):
+            check_same(f"sharded_cluster_chunk (D={d}) {name}", a, b)
+    out["sharded_cluster_chunk"] = cluster
+
+    args, kw, single = calls["filter_metrics_all"][0]
+    got, sec = timed(lambda: parallel.sharded_filter_metrics(mesh[2], *args,
+                                                             **kw))
+    for k in single:
+        check_same(f"sharded_filter_metrics {k}", got[k], single[k])
+    out["sharded_filter_metrics"] = {"d2_s": sec, "fields": sorted(single)}
+
+    det_valid = torch.as_tensor(calls["det_valid"]).cuda()
+    total = int(parallel.global_detection_count(mesh[2], det_valid))
+    if total != int(det_valid.sum()):
+        raise AssertionError(f"global_detection_count {total} != "
+                             f"{int(det_valid.sum())}")
+    out["global_detection_count"] = total
+    return out
+
+
+def check_multi_device(clip_model, mods, smi):
+    """Phase 3f: the multi-device layer on the one card, its shards logical
+    shards of cuda:0 (``parallel.local_devices`` replaced): (a) each
+    sharded function against its single-device counterpart, (b) the nine
+    stages through ``run_sequences`` on the 32-frame parity scene, once on
+    one device and once over 2 shards (``shard_ground`` off), then stage 1
+    over 2 shards with ``shard_ground`` on, and (c) the dense
+    configuration's stages 1-3 on one device and over 2 shards. Returns the
+    phase's summary."""
+    import numpy as np
+    import torch
+    from vilgod_tpu_torch import parallel
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.data import SyntheticDataset
+    from vilgod_tpu_torch.pipeline import stages_geometry
+    from vilgod_tpu_torch.pipeline.runner import run_sequences
+
+    t_phase = time.perf_counter()
+    ds = SyntheticDataset(**{**SCENE, "n_frames": SHARD_FRAMES})
+    kernels, vit_kernels, dense_kernels = mods
+    sharded_names = ("sharded_ground", "sharded_entropy",
+                     "sharded_cluster_chunk", "sharded_filter_metrics")
+
+    def run(cfg, d, clip=None, spy=()):
+        """One run_sequences of ``ds``: stage seconds, launches per stage
+        and in all, the fields each stage decided, the sharded functions
+        called and the calls of ``spy`` (stages_geometry's)."""
+        for m in mods:
+            m.reset_launches()
+        times = {}
+        with Patched(parallel, ("local_devices",), shards_of(d)), \
+                Patched(parallel, sharded_names) as taken, \
+                Patched(stages_geometry, spy) as spied, \
+                StageRecord(mods) as rec:
+            t0 = time.perf_counter()
+            run_sequences(ds, cfg, clip_model=clip, stage_times=times,
+                          prefetch_next=False, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return {"stage_s": times, "wall_s": wall,
+                "launches_by_stage": rec.launches,
+                "launches": launch_counts(mods),
+                "sharded_calls": {k: len(v) for k, v in taken.calls.items()
+                                  if v}}, rec.fields, spied.calls
+
+    def fields(rec, pairs):
+        return {f: rec[s][f] for s, f in pairs}
+
+    # (b) the nine stages, one device then 2 shards; (a)'s arguments come
+    # from the single-device run
+    off = waymo_config(capacity=CAPS, pipeline_active=STAGES,
+                       parallel={"shard_ground": False})
+    single, single_rec, calls = run(off, 1, clip_model, spy=(
+        "segment_sequence", "entropy_sequence", "cluster_frames_chunk",
+        "filter_metrics_all"))
+    calls["det_valid"] = single_rec["filter_detections"]["det_valid"]
+    sharded, sharded_rec, _ = run(off, 2, clip_model)
+    # both once more in the other order: the first run is the coldest
+    again = [run(off, d, clip_model)[0]["stage_s"] for d in (2, 1)]
+    for label, times in (("one device", single["stage_s"]),
+                         ("2 shards", sharded["stage_s"]),
+                         ("2 shards, again", again[0]),
+                         ("one device, again", again[1])):
+        log(f"3f (b) stage seconds, {label}: " + json.dumps(times))
+    log("3f (b) launches by stage, one device: "
+        + json.dumps(single["launches_by_stage"]))
+    log("3f (b) launches by stage, 2 shards: "
+        + json.dumps(sharded["launches_by_stage"]))
+    if set(sharded["sharded_calls"]) != set(sharded_names) - {"sharded_ground"}:
+        raise AssertionError(f"sharded run took {sharded['sharded_calls']}")
+    for name in list(kernels.KERNEL_NAMES) + ["fused_attention_proj"]:
+        if sharded["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in the sharded run")
+    for stage, names in STAGE_FIELDS.items():
+        if stage in ("classification", "evaluate_sequence"):
+            continue
+        for f in names:
+            check_same(f"{stage} {f}", sharded_rec[stage][f],
+                       single_rec[stage][f])
+    a, b = single_rec["classification"], sharded_rec["classification"]
+    valid = single_rec["filter_detections"]["det_valid"]
+    score_diff = np.abs(a["det_score"] - b["det_score"])[valid]
+    flips = [(int(f), int(c), int(a["det_cls"][f, c]), int(b["det_cls"][f, c]),
+              float(a["det_score"][f, c]), float(b["det_score"][f, c]))
+             for f, c in zip(*np.nonzero(valid & (a["det_cls"]
+                                                   != b["det_cls"])))]
+    for flip in flips:
+        log(f"3f (b) class flip at (frame, cluster) {flip[:2]}: {flip[2]} -> "
+            f"{flip[3]}, scores {flip[4]} / {flip[5]}")
+        if abs(flip[4] - flip[5]) > TIE_TOL:
+            raise AssertionError(f"class flipped on untied scores: {flip}")
+    a, b = single_rec["evaluate_sequence"], sharded_rec["evaluate_sequence"]
+    agree = a["det_valid"] & b["det_valid"] & (a["det_cls"] == b["det_cls"])
+    box_err = float(np.abs(a["det_box"][agree] - b["det_box"][agree]).max(
+        initial=0.0))
+    if box_err > BOX_TOL or np.isnan(box_err):
+        raise AssertionError(f"boxes of agreeing detections {box_err} m apart")
+    nine = {"frames": SHARD_FRAMES, "one_device": single, "shards_2": sharded,
+            "valid_detections": int(valid.sum()), "class_flips": len(flips),
+            "max_score_diff": float(score_diff.max(initial=0.0)),
+            "max_box_err_m": box_err, "agreeing_boxes": int(agree.sum())}
+
+    functions = check_sharded_functions(calls, parallel, stages_geometry, smi)
+    per_chunk = functions.pop("per_chunk_d2")
+    del calls
+    log("3f (a) sharded functions: " + json.dumps(functions))
+
+    on = waymo_config(capacity=CAPS, pipeline_active=STAGES[:1])
+    ground_on, ground_rec, _ = run(on, 2)
+    # the host mask is max_points wide, the scans the points bucket
+    want = per_chunk.cpu().numpy()[:SHARD_FRAMES]
+    got = ground_rec["mask_ground_points"]["ground_mask"]
+    check_same("mask_ground_points with shard_ground (D=2) against the "
+               "per-chunk scans", got[:, :want.shape[1]], want)
+    nine["shard_ground_on"] = {
+        "stage_s": ground_on["stage_s"],
+        "sharded_calls": ground_on["sharded_calls"],
+        "differ_from_single_scan": int(
+            (got != single_rec["mask_ground_points"]["ground_mask"]).sum())}
+    log("3f (b) nine stages: " + json.dumps({"device": smi, **nine}))
+
+    # (c) the dense configuration, one device then 2 shards
+    dense = dense_config()
+    dense["parallel"] = {"shard_ground": False}
+    d_single, d_single_rec, _ = run(dense, 1)
+    d_sharded, d_sharded_rec, _ = run(dense, 2)
+    d_again = [run(dense, d)[0]["stage_s"] for d in (2, 1)]
+    for stage in STAGES[:3]:
+        for f in STAGE_FIELDS[stage]:
+            check_same(f"dense {stage} {f}", d_sharded_rec[stage][f],
+                       d_single_rec[stage][f])
+    for name in dense_kernels.KERNEL_NAMES[:4]:
+        if d_sharded["launches"][name] <= 0:
+            raise AssertionError(f"{name} never launched in the sharded dense "
+                                 f"configuration")
+    dense_out = {"device": smi, "one_device": d_single, "shards_2": d_sharded,
+                 "stage_s_again": {"shards_2": d_again[0],
+                                   "one_device": d_again[1]}}
+    log("3f (c) dense configuration: " + json.dumps(dense_out))
+    torch.cuda.empty_cache()
+    # stage sums in run order: one device, 2 shards, 2 shards, one device
+    return {"device": smi, "phase_s": time.perf_counter() - t_phase,
+            "stage_s": [sum(t.values()) for t in (
+                single["stage_s"], sharded["stage_s"], *again)],
+            "class_flips": len(flips),
+            "dense_stage_s": [sum(t.values()) for t in (
+                d_single["stage_s"], d_sharded["stage_s"], *d_again)]}
+
+
 def check_entropy_window(win, win_mask, seek, kernels, dense_kernels):
     """Phase 4: ``entropy_scores_window`` of frame ``seek`` against the
     window on the card and on the CPU: each window frame's count equal
@@ -1991,6 +2355,10 @@ def main() -> int:
         log("tools and chained scan: " + json.dumps(check_tools(
             ds, cfg, geo_state, kernels, smi)))
         torch.cuda.empty_cache()
+
+        # ---- 3f. the multi-device layer on logical shards of the card ----
+        log("multi-device layer: " + json.dumps(check_multi_device(
+            clip_model, (kernels, vit_kernels, dense_kernels), smi)))
 
         # ---- 4. kernels against their plain versions ----
         rows = []

@@ -46,13 +46,15 @@ def _np(x):
     return np.asarray(x)
 
 
-# the port's utils also export resolve_device, its device rule
-PORT_EXTRAS = {"utils": {"resolve_device"}}
+# the port's utils also export resolve_device, its device rule; its
+# parallel its Mesh and local_devices, where the stages learn their devices
+PORT_EXTRAS = {"utils": {"resolve_device"},
+               "parallel": {"Mesh", "local_devices"}}
 
 
 @pytest.mark.parametrize("package", ["data", "eval", "ops", "ground",
                                      "models", "config", "pipeline",
-                                     "tracking", "utils"])
+                                     "tracking", "utils", "parallel"])
 def test_package_exports_every_jax_name(package):
     jax_mod = importlib.import_module(f"vilgod_tpu.{package}")
     port_mod = importlib.import_module(f"vilgod_tpu_torch.{package}")

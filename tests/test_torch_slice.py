@@ -98,7 +98,8 @@ def test_port_runs_without_jax(tmp_path):
     """vilgod_tpu_torch never imports jax: with jax unimportable the
     package (the CLIP models, the classification and box stages, tracking,
     eval, the dense kernels, the dataset adapters and export, the run tool,
-    the evaluate tool and the bench included) imports and runs a stage;
+    the evaluate tool, the bench and the multi-device layer included)
+    imports and runs a stage;
     asking for cuda without a card raises."""
     code = """
 import sys
@@ -113,7 +114,7 @@ from vilgod_tpu_torch.pipeline import stages_boxes, stages_classify
 from vilgod_tpu_torch import eval, tracking
 from vilgod_tpu_torch.ops import boxes, dense_kernels
 from vilgod_tpu_torch.tools import bench, evaluate, run
-from vilgod_tpu_torch import ground, ops, utils
+from vilgod_tpu_torch import ground, ops, parallel, utils
 from vilgod_tpu_torch.data import argoverse, export, openpcdet, waymo
 from vilgod_tpu_torch.eval import sequence_eval, waymo_tf
 cap = {"max_points": 16384, "max_ng_points": 8192, "max_cluster_input": 8192}

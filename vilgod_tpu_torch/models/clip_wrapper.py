@@ -14,6 +14,7 @@ CUDA kernel of ``csrc/vit.cu`` on the card.
 """
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -52,13 +53,25 @@ class ClipWrapper:
 
         self.class_list = list(clip_cfg.get("class_list", []))
         self.class_mapping = dict(clip_cfg.get("class_mapping", {}))
-        template = clip_cfg.get("prompt_template",
+        self.text_features = self._encode_prompts()  # (K, D)
+
+    def _encode_prompts(self) -> torch.Tensor:
+        template = self.cfg.get("prompt_template",
                                 "a point representation of a {}")
         prompts = [template.format(c) for c in self.class_list]
         tokens = torch.from_numpy(self.tokenizer.tokenize(prompts)).long()
         feats = self.model.encode_text(tokens.to(self.device)).float()
-        self.text_features = feats / torch.linalg.norm(feats, dim=-1,
-                                                       keepdim=True)  # (K, D)
+        return feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
+
+    def replica(self, device) -> "ClipWrapper":
+        """This wrapper on another ``device``: a copy of its model's
+        weights there, the same prompts and tokenizer, its text features
+        encoded there (the per-device copy of a sharded classification)."""
+        other = copy.copy(self)
+        other.device = torch.device(device)
+        other.model = copy.deepcopy(self.model).to(other.device)
+        other.text_features = other._encode_prompts()
+        return other
 
     @torch.no_grad()
     def _classify_images(self, images: torch.Tensor):

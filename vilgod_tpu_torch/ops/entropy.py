@@ -65,19 +65,38 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
     ``include_ground_points`` option); queries stay the non-ground points.
 
     Window start ``clamp(f, 0, F_real - W)`` with every ``skip_frames +
-    1``-th frame sampled. Large clouds with a radius below the cell side
-    are cell-sorted once per frame against one sequence-wide grid origin,
-    and each (frame, window frame) pair is one banded count, re-run at
-    full width when its windows overflow; otherwise each pair is one
-    :func:`radius_count` (the dense all-pairs count for such a radius).
+    1``-th frame sampled; the counts of each (frame, window frame) pair
+    come from :func:`pair_counter`.
+    """
+    f_total = frames.shape[0]
+    f_real = int(frame_valid.sum())
+    w = min(window, f_total)
+    sampled = list(range(w))[::skip_frames + 1]
+    pair_counts = pair_counter(frames, masks, radius, max_neighbor_points,
+                               data_frames, data_masks)
+    return torch.stack([
+        frame_scores(pair_counts, masks[fnr], fnr,
+                     min(max(fnr, 0), max(f_real - w, 0)), sampled,
+                     max_neighbor_points)
+        for fnr in range(f_total)])
+
+
+def pair_counter(frames, masks, radius: float, max_neighbor_points: int,
+                 data_frames=None, data_masks=None):
+    """``pair_counts(frame, window frame)``: each point of ``frames[frame]``
+    counts the points of the window frame within ``radius``, clipped at
+    ``max_neighbor_points + 1``; invalid points count 0.
+
+    Large clouds with a radius below the cell side are cell-sorted once
+    per frame against one grid origin over all ``frames``, and each pair
+    is one banded count (kernel 1), re-run at full width when its windows
+    overflow; otherwise each pair is one :func:`radius_count` (the dense
+    all-pairs count, kernel 6, for such a radius).
     """
     f_total, n = frames.shape[:2]
     d_frames = frames if data_frames is None else data_frames
     d_masks = masks if data_masks is None else data_masks
     n_d = d_frames.shape[1]
-    f_real = int(frame_valid.sum())
-    w = min(window, f_total)
-    sampled = list(range(w))[::skip_frames + 1]
 
     bandable = (isinstance(radius, (int, float)) and float(radius) < CELL
                 and n >= 4096 and n % 2048 == 0
@@ -87,11 +106,10 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
             return radius_count(frames[fnr], masks[fnr], d_frames[wf],
                                 d_masks[wf], radius,
                                 max_count=max_neighbor_points + 1)
-        return _scores(masks, f_total, f_real, w, sampled, pair_counts,
-                       max_neighbor_points)
+        return pair_counts
 
-    # ONE origin for the whole sequence: frames' cell ids are compared
-    # against other frames' ids inside the window passes
+    # ONE origin for all frames: frames' cell ids are compared against
+    # other frames' ids inside the window passes
     big = torch.tensor(1e9, dtype=frames.dtype, device=frames.device)
     mn = torch.where(masks[..., None], frames[..., :2], big).amin(dim=(0, 1))
     if data_frames is not None:
@@ -126,26 +144,21 @@ def entropy_sequence(frames, masks, frame_valid, window: int = 15,
         return torch.clamp(torch.where(masks[fnr], c_un, 0),
                            max=max_neighbor_points + 1)
 
-    return _scores(masks, f_total, f_real, w, sampled, pair_counts,
-                   max_neighbor_points)
+    return pair_counts
 
 
-def _scores(masks, f_total, f_real, w, sampled, pair_counts,
-            max_neighbor_points):
-    """Every frame's entropy from ``pair_counts(frame, window frame)``, the
-    clipped counts of one (frame, window frame) pair; the frame's own
-    count drops the query point itself."""
-    scores = []
-    for fnr in range(f_total):
-        start = min(max(fnr, 0), max(f_real - w, 0))
-        seek = fnr - start
-        counts = []
-        for s in sampled:
-            c = pair_counts(fnr, min(max(s + start, 0), f_total - 1))
-            if s == seek:
-                c = torch.clamp(c - 1, min=0)
-            counts.append(torch.clamp(c, max=max_neighbor_points))
-        h = entropy_from_counts(torch.stack(counts, dim=1))
-        scores.append(torch.where(masks[fnr], h, torch.ones_like(h)))
-    return torch.stack(scores)
-
+def frame_scores(pair_counts, mask, fnr: int, start: int, sampled,
+                 max_neighbor_points: int) -> torch.Tensor:
+    """Frame ``fnr``'s entropy scores over the window frames ``start + s``
+    for ``s`` in ``sampled``, from ``pair_counts`` (:func:`pair_counter`);
+    the frame's own count drops the query point itself. Points outside
+    ``mask`` score 1."""
+    seek = fnr - start
+    counts = []
+    for s in sampled:
+        c = pair_counts(fnr, start + s)
+        if s == seek:
+            c = torch.clamp(c - 1, min=0)
+        counts.append(torch.clamp(c, max=max_neighbor_points))
+    h = entropy_from_counts(torch.stack(counts, dim=1))
+    return torch.where(mask, h, torch.ones_like(h))

@@ -127,15 +127,34 @@ class ZeroShotDetector:
                 self.state.save(self.cache_path)
 
 
+def process_grid() -> tuple[int, int]:
+    """(this process's index, the process count): the rank and world size
+    of an initialised ``torch.distributed`` process group, else (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def run_sequences(dataset, cfg, clip_model=None, cache_dir=None,
-                  result_dir=None, prefetch_next: bool = True,
+                  result_dir=None, shard_hosts: bool = True,
+                  prefetch_next: bool = True,
                   stage_times: dict | None = None, device=None) -> list[dict]:
     """Process every sequence and concatenate the per-frame detection
     dicts in order. The next sequence builds on a worker thread while the
     current one processes (frame copies and quantization overlap the
-    device work)."""
+    device work).
+
+    With ``shard_hosts`` and a process group that the caller initialised
+    (:func:`process_grid`), process r of W takes the sequences
+    ``names[r::W]``: sequences are independent, so processes need no
+    communication; their results land in the shared ``result_dir``, from
+    which any process re-scores the union."""
     device = resolve_device(device)
     names = list(dataset.sequence_names())
+    rank, world = process_grid()
+    if shard_hosts and world > 1:
+        names = names[rank::world]
 
     def cached(seq_name):
         return (Path(result_dir) / f"{seq_name}.npz") if result_dir else None

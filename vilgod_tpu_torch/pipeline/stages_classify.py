@@ -1,16 +1,19 @@
-"""Stage 6: zero-shot CLIP classification of clusters; the port of the
-single-device path of ``vilgod_tpu/pipeline/stages_classify.py``.
+"""Stage 6: zero-shot CLIP classification of clusters; the port of
+``vilgod_tpu/pipeline/stages_classify.py``.
 
 Valid detections of every frame are batched together; each batch is
 gathered, rendered as 4-view depth images and classified by CLIP on the
 device, and the per-view classes and scores come down in ONE download at
-the end. A detection's class is the majority vote of its views.
+the end. A detection's class is the majority vote of its views. With
+local peers of the state's device, each batch splits over them
+(:func:`mesh_classifier`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import parallel
 from .state import CLS_NONE, MAPPED_CLASSES, SequenceState
 
 
@@ -37,6 +40,36 @@ def _render_args(cfg, image_size: int) -> dict:
                 obj_ratio=proj.get("obj_ratio", 0.8),
                 depth_bias=proj.get("depth_bias", 0.2),
                 image_size=image_size)
+
+
+def mesh_classifier(clip_model, mesh: parallel.Mesh, ng_xyz, tables,
+                    table_masks, **make_kw):
+    """``run(frame_ids, cluster_ids, transforms) -> (class index (B, V),
+    score (B, V))`` on the mesh's first device, the batch split into
+    contiguous shards (``P("dp")``), each rendered and classified on its
+    shard's device. The sequence buffers are copied once to each distinct
+    device, where a :meth:`ClipWrapper.replica` classifies (the model
+    itself on its own device); B must divide over the mesh."""
+    repl = parallel.replicated(mesh)
+    bufs = list(zip(*(repl.put(t) for t in (ng_xyz, tables, table_masks))))
+    fns = {}
+    for dev in mesh.devices:
+        if dev not in fns:
+            wrapper = (clip_model if dev == clip_model.text_features.device
+                       else clip_model.replica(dev))
+            fns[dev] = wrapper.make_cluster_classifier(**make_kw)
+    d = len(mesh.devices)
+
+    def run(frame_ids, cluster_ids, transforms):
+        parts = [np.split(np.asarray(x), d)
+                 for x in (frame_ids, cluster_ids, transforms)]
+        outs = [fns[dev](*bufs[i], *(p[i] for p in parts))
+                for i, dev in enumerate(mesh.devices)]
+        first = mesh.devices[0]
+        return tuple(torch.cat([o[k].to(first) for o in outs])
+                     for k in range(2))
+
+    return run
 
 
 def dump_depth_images(state: SequenceState, cfg, out_dir,
@@ -93,7 +126,7 @@ def classification(state: SequenceState, cfg, clip_model=None,
     if aggregation != "voting":
         raise NotImplementedError(aggregation)
 
-    from .stages_geometry import frame_bucket
+    from .stages_geometry import frame_bucket, stage_mesh
 
     batch = state.caps.clip_batch
     mapping = clip_model.class_mapping
@@ -102,9 +135,23 @@ def classification(state: SequenceState, cfg, clip_model=None,
     n_ng = state.ng_bucket()
     ng_xyz = state.device("ng_xyz", f_pad, n_ng)
     tables, table_masks = state.det_tables(f_pad, n_ng)
-    classify = clip_model.make_cluster_classifier(
-        state.caps.max_clusters, state.caps.max_cluster_points,
-        **_render_args(cfg, image_size))
+    make_kw = dict(num_clusters=state.caps.max_clusters,
+                   capacity=state.caps.max_cluster_points,
+                   **_render_args(cfg, image_size))
+    # the batch axis shards over the local devices (each runs the whole
+    # tower on its share of the batch)
+    mesh = stage_mesh(state)
+    n_dev = mesh.shape["dp"]
+    if (n_dev > 1 and batch % n_dev == 0
+            and cfg.get("parallel", {}).get("shard_clip", True)):
+        classify = mesh_classifier(clip_model, mesh, ng_xyz, tables,
+                                   table_masks, **make_kw)
+    else:
+        n_dev = 1
+        single = clip_model.make_cluster_classifier(**make_kw)
+
+        def classify(fids, cids, trs):
+            return single(ng_xyz, tables, table_masks, fids, cids, trs)
 
     # batch across frames: each frame holds few clusters
     todo: list[tuple[int, int]] = []
@@ -117,6 +164,8 @@ def classification(state: SequenceState, cfg, clip_model=None,
     # every batch is enqueued first; the results come down in one download
     pending = []
     tail = min(batch, max(32, batch // 4))
+    # sharded batches split evenly across the devices
+    tail = max(n_dev, tail - tail % n_dev)
     i = 0
     while i < len(todo):
         # the final sliver runs at the tail size, not a full padded batch
@@ -129,8 +178,7 @@ def classification(state: SequenceState, cfg, clip_model=None,
         for j, (f, c) in enumerate(chunk):
             fids[j], cids[j] = f, c
             trs[j] = ego[f]
-        pending.append((chunk, classify(ng_xyz, tables, table_masks, fids,
-                                        cids, trs)))
+        pending.append((chunk, classify(fids, cids, trs)))
     if pending:
         packed = torch.cat([torch.cat([idx.float(), sc], dim=-1)
                             for _, (idx, sc) in pending]).cpu().numpy()

@@ -1,15 +1,20 @@
 """Geometry stages 1-4 (ground masking, entropy, clustering, filter); the
-port of the single-device paths of ``vilgod_tpu/pipeline/stages_geometry.py``.
+port of ``vilgod_tpu/pipeline/stages_geometry.py``.
 
 Each stage is ``stage(state, cfg, **args)`` over the device-resident
 buffers of a :class:`SequenceState`; derived per-point buffers are born on
 the state's device and only the per-detection tables reach the host.
+Where the state's device has local peers (``parallel.local_devices``) each
+stage shards its frames over them under the JAX package's gate and
+``cfg.parallel`` switches, and gathers the result back to the state's
+device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..ground.patchwork import (ground_config_from_cfg, segment_sequence,
                                segment_sequence_chained)
 from ..ops import random as jrandom
@@ -65,6 +70,13 @@ def _compact_sequence(points, mask, ground, transforms, cap_ng: int):
     return ng_xyz, valid, src, cnt
 
 
+def stage_mesh(state: SequenceState) -> parallel.Mesh:
+    """The mesh a stage of ``state`` may shard over: every local device
+    of the state's, the state's first (one shard on the CPU)."""
+    return parallel.make_mesh(
+        devices=parallel.local_devices(state.torch_device))
+
+
 def ground_chains(cfg, f_pad: int) -> int:
     """The chains of the ground scan: ``parallel.ground_chains`` where it
     divides the padded frames into chunks of at least 8 (the adaptive
@@ -79,10 +91,14 @@ def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
                        z_offset: float = 1.723, **_):
     """Patchwork++-style ground segmentation scanned over the frames, then
     the non-ground compaction. Only the (F,) occupancy counts reach the
-    host (they pick the shape bucket of the later stages). With
+    host (they pick the shape bucket of the later stages). With D > 1
+    local devices, ``F_pad / D >= 8`` frames a shard (the adaptive
+    thresholds settle from frame 2) and ``parallel.shard_frames`` and
+    ``shard_ground`` on, each device scans its own frame chunk
+    (``parallel.sharded_ground``). Otherwise, with
     ``parallel.ground_chains`` = k (:func:`ground_chains`) the scan runs k
-    frame chunks side by side (``segment_sequence_chained``), whose masks
-    differ from the single scan's at the chunk heads."""
+    frame chunks side by side on one device (``segment_sequence_chained``).
+    Both differ from the single scan at the chunk heads."""
     if state.done.get("mask_ground_points"):
         return
     gcfg = ground_config_from_cfg(cfg, min_range=min_range)
@@ -92,8 +108,16 @@ def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
     cap_ng = state.caps.max_ng_points
     points = state.device("points", f_pad, n_pts)
     mask = state.device("points_mask", f_pad, n_pts)
+    par = cfg.get("parallel", {})
+    mesh = stage_mesh(state)
+    n_dev = mesh.shape["dp"]
     chains = ground_chains(cfg, f_pad)
-    if chains > 1:
+    if (n_dev > 1 and f_pad % n_dev == 0 and f_pad // n_dev >= 8
+            and par.get("shard_frames", True)
+            and par.get("shard_ground", True)):
+        ground = parallel.sharded_ground(mesh, points, mask, gcfg, z_offset)
+        ground = ground.to(state.torch_device) & mask
+    elif chains > 1:
         ground = segment_sequence_chained(points, mask, gcfg, z_offset,
                                           chains) & mask
     else:
@@ -145,25 +169,42 @@ def calculate_entropy_scores(state: SequenceState, cfg,
                              force: bool = False, **_):
     """MODEST-style ephemerality scores over a sliding frame window.
     ``include_ground_points`` fills the neighbour window with the FULL
-    world-frame cloud; scored points stay the non-ground set."""
+    world-frame cloud; scored points stay the non-ground set (one device
+    only). Otherwise, with D > 1 local devices dividing the padded frames
+    into chunks of at least the window that also hold the padded tail's
+    clamped windows, and ``parallel.shard_frames`` on, the frames shard
+    over the devices with a halo (``parallel.sharded_entropy``)."""
     if state.done.get("calculate_entropy_scores") and not force:
         return
     f_total = state.n_frames
     f_pad = frame_bucket(f_total)
     n_ng = state.ng_bucket()
     window = min(n_neighbouring_frames, f_total)
-    fv = _frame_valid(f_total, f_pad, state.torch_device)
     kw = dict(window=window, skip_frames=skip_frames,
               radius=max_neighbor_point_dist,
               max_neighbor_points=max_neighbor_points)
+    frames = state.device("ng_xyz", f_pad, n_ng)
+    masks = state.device("ng_mask", f_pad, n_ng)
+    fv = _frame_valid(f_total, f_pad, state.torch_device)
+    mesh = stage_mesh(state)
+    n_dev = mesh.shape["dp"]
+    use_mesh = (n_dev > 1 and f_pad % n_dev == 0
+                and f_pad // n_dev >= window
+                and (f_pad - f_total) + window <= f_pad // n_dev
+                and cfg.get("parallel", {}).get("shard_frames", True))
     if include_ground_points:
         n_pts = state.points_bucket()
         full_ref = apply_transform(state.device("points", f_pad, n_pts)[..., :3],
                                    _transforms_to_ref(state, f_pad))
-        kw.update(data_frames=full_ref,
-                  data_masks=state.device("points_mask", f_pad, n_pts))
-    scores = entropy_sequence(state.device("ng_xyz", f_pad, n_ng),
-                              state.device("ng_mask", f_pad, n_ng), fv, **kw)
+        scores = entropy_sequence(
+            frames, masks, fv, data_frames=full_ref,
+            data_masks=state.device("points_mask", f_pad, n_pts), **kw)
+    elif use_mesh:
+        scores = parallel.sharded_entropy(mesh, frames, masks,
+                                          f_real=f_total, **kw)
+        scores = scores.to(state.torch_device)
+    else:
+        scores = entropy_sequence(frames, masks, fv, **kw)
     state.put_device("ng_entropy", scores, f_pad, n_ng)
     state.done["calculate_entropy_scores"] = True
 
@@ -386,7 +427,10 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
 def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
                        force: bool = False, **_):
     """Spatio-temporal density clustering + detection tables over chunks of
-    frames of the resident buffers."""
+    frames of the resident buffers. With D > 1 local devices dividing the
+    chunk and ``parallel.shard_cluster`` on, each device clusters its
+    share of the chunk's frame windows (``parallel.sharded_cluster_chunk``;
+    pages are independent, so the outputs are the single device's)."""
     if state.done.get("spatial_clustering") and not force:
         return
     caps = state.caps
@@ -421,6 +465,20 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
         ephe_min_score=ent_f.get("min_percentile_pp_score", 0.5),
         max_clusters=caps.max_clusters, capacity=caps.max_cluster_points)
 
+    mesh = stage_mesh(state)
+    n_dev = mesh.shape["dp"]
+    if (n_dev > 1 and chunk % n_dev == 0
+            and cfg.get("parallel", {}).get("shard_cluster", True)):
+        def run_chunk(f0):
+            return [a.to(state.torch_device) for a in
+                    parallel.sharded_cluster_chunk(
+                        mesh, cluster_frames_chunk, dev_args, stats, f0,
+                        seed, chunk=chunk, **kernel_kw)]
+    else:
+        def run_chunk(f0):
+            return cluster_frames_chunk(*dev_args, stats, f0, seed,
+                                        chunk=chunk, **kernel_kw)
+
     starts = list(range(0, f_pad - chunk + 1, chunk))
     if starts[-1] + chunk < f_pad:
         # full-size final chunk anchored at the bucket end (pages are
@@ -428,8 +486,7 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
         starts.append(f_pad - chunk)
     outs, prev_end = [], 0
     for f0 in starts:
-        o = cluster_frames_chunk(*dev_args, stats, f0, seed, chunk=chunk,
-                                 **kernel_kw)
+        o = run_chunk(f0)
         outs.append([a[prev_end - f0:] for a in o])
         prev_end = f0 + chunk
     stacked = [torch.cat([o[i] for o in outs]) for i in range(6)]
@@ -498,7 +555,10 @@ def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
     """Apply the configured cluster filters to every detection, with the
     reference's combinator: valid = (all(and) or any(or)) and
     all(and + required). The metrics run on the device; the combinator
-    stays on the host over (F, C) boolean arrays."""
+    stays on the host over (F, C) boolean arrays. With D > 1 local devices
+    dividing the padded frames and ``parallel.shard_filter`` on, the
+    frames shard over them (``parallel.sharded_filter_metrics``, every
+    padded frame computed, as in the JAX package)."""
     if state.done.get("filter_detections") and not force:
         return
     pre = cfg.get("preprocessor", {})
@@ -515,16 +575,27 @@ def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
 
     n_pts = state.points_bucket()
     n_ng = state.ng_bucket()
-    # the real frames only (JAX also computes the padded ones, unread)
-    per_frame = filter_metrics_all(
-        *(state.device(k, f_pad, n_pts)[:f_total]
+    metric_args = (
+        *(state.device(k, f_pad, n_pts)
           for k in ("points", "points_mask", "ground_mask")),
-        _transforms_to_ref(state, f_pad)[:f_total],
-        *(state.device(k, f_pad, n_ng)[:f_total]
-          for k in ("ng_xyz", "ng_entropy", "labels", "ng_mask")),
-        cfg.get("random_seed", 666), ephe_percentile,
-        ransac_iters=cfg.get("capacity", {}).get("ransac_iters", 100),
-        max_clusters=caps.max_clusters)
+        _transforms_to_ref(state, f_pad),
+        *(state.device(k, f_pad, n_ng)
+          for k in ("ng_xyz", "ng_entropy", "labels", "ng_mask")))
+    kw = dict(ransac_iters=cfg.get("capacity", {}).get("ransac_iters", 100),
+              max_clusters=caps.max_clusters)
+    seed = cfg.get("random_seed", 666)
+    mesh = stage_mesh(state)
+    n_dev = mesh.shape["dp"]
+    if (n_dev > 1 and f_pad % n_dev == 0
+            and cfg.get("parallel", {}).get("shard_filter", True)):
+        per_frame = parallel.sharded_filter_metrics(
+            mesh, *metric_args, seed, ephe_percentile, **kw)
+        per_frame = {k: v[:f_total].to(state.torch_device)
+                     for k, v in per_frame.items()}
+    else:
+        # the real frames only (JAX also computes the padded ones, unread)
+        per_frame = filter_metrics_all(*(a[:f_total] for a in metric_args),
+                                       seed, ephe_percentile, **kw)
     # one download for all fields
     C = caps.max_clusters
     packed = torch.cat([v.reshape(f_total, -1).to(torch.float32)
