@@ -86,7 +86,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    frames, no nvcc build or library load in the second, its peak memory
    within 5 % of the first's; cold and warm frames/s, peaks and stage
    seconds printed, and the chained scan timed at k = 1, 5, 25 on the
-   first sequence's 200-frame bucket;
+   first sequence's 200-frame bucket (phase 3g (f) also runs on that
+   sequence's state, its launches kept out of the soak's);
 3f. the multi-device layer (``vilgod_tpu_torch.parallel``) on the one
    card, its shards logical shards of cuda:0 (``parallel.local_devices``
    replaced for the phase), on the parity scene at 32 frames (a shard of
@@ -111,6 +112,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``global_detection_count`` the count; (c) the dense configuration's
    stages 1-3 on one device and over 2 shards: equal, kernels 6-9 each
    launched in the sharded run;
+3g. the C++ ground oracle and the debug tools of vilgod_tpu_torch/tools,
+   one JSON line each with the card's name and power limit and its
+   seconds: (a) ``tools.ground_oracle``: the oracle (``ground/native``,
+   built with g++ into ``build/native/``) against ``segment_ground`` on
+   the card in tests/test_ground_native.py's four cases and bounds
+   (recall > 0.9, false positives < 0.15, IoU > 0.97, sensor height within
+   0.2 m of 1.723, agreement > 0.999 on each of 6 frames); (b)
+   ``debug_ground_scale`` at f_pad 24, 48, 64 and 200 (presort, scan and
+   fused, cold and warm; each run's masks equal to its scan's and to the
+   first frames of the 200-frame run's); (c) ``debug_band_width`` on phase
+   3's chunk input: kernels 2-4 with ``ends`` at band widths 8192, 10240,
+   14336 and 20480, the outputs of every width without overflow equal
+   (integers exactly, squared distances bitwise on valid lanes); (d)
+   ``debug_cluster_stepwise`` at 200 frames; (e) ``debug_cluster_crash``
+   at 64 frames; (f) ``debug_soak_cluster --launch`` on the soak's first
+   200-frame state (every chunk's spans and overflow flags, then its
+   run), taken in phase 3e through the soak's ``inspect`` hook;
 4. all twelve kernels against their plain PyTorch versions on the card,
    on the arguments the runs gave them (captured in phases 3 and 3b): the
    banded kernels also on a forced full-width (overflow) call each, small
@@ -202,6 +220,11 @@ SOAK_FRAMES = 199
 SOAK_CHAINS = (1, 5, 25)
 MICROBENCH_REPS = 2
 Z_OFFSET = 1.723
+# phase 3g: the debug tools' frame counts (tools/debug_*.py defaults, the
+# ground scale also at the soak's 200-frame bucket)
+GROUND_SCALE_FPADS = (24, 48, 64, 200)
+STEPWISE_FRAMES = 200
+CRASH_FRAMES = 64
 # phase 3f: the parity scene at 32 frames (a shard of 2 holds the 15-frame
 # window), the logical shards of the one card, and the tolerances of the
 # sharded classification (JAX's tie rule of tests/test_parallel.py: a
@@ -1557,13 +1580,93 @@ def check_chained(points, mask, gcfg, smi, k=3):
             "cpu_s": cpu_s}
 
 
-def check_tools(ds, cfg, geo_state, kernels, smi):
+def check_soak_cluster(state, kernels, smi):
+    """Phase 3g (f): ``tools.debug_soak_cluster`` with ``--launch`` on the
+    soak's first 200-frame state (from the soak's ``inspect`` hook, so that
+    stages 1-2 over 200 frames run once): every chunk's window dissection,
+    then each chunk's ``cluster_frames_chunk``. Returns its summary, with
+    the launches it made."""
+    from vilgod_tpu_torch.tools import debug_soak_cluster
+
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    out = debug_soak_cluster.run(state.n_frames, launch=True, state=state)
+    seconds = time.perf_counter() - t0
+    return {"device": smi, "seconds": seconds, **out,
+            "overflow": sorted({k for c in out["chunks"]
+                                for k, (_, o) in c["spans"].items() if o}),
+            "launches": {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                         if v > before[k]}}
+
+
+def check_debug_tools(geo_state, cfg, soak_cluster, smi):
+    """Phase 3g: the native ground oracle and the debug tools of
+    ``vilgod_tpu_torch/tools`` on the card, one JSON line each with the
+    card's name and power limit: (a) ``tools.ground_oracle`` (the C++
+    oracle against ``segment_ground`` on the card, tests/test_ground_native
+    .py's bounds), (b) ``debug_ground_scale`` at f_pad 24, 48, 64 and 200
+    (each f_pad's masks equal to the first frames of the 200-frame run's),
+    (c) ``debug_band_width`` on phase 3's chunk input (the outputs of
+    every width without overflow equal), (d) ``debug_cluster_stepwise`` at
+    200 frames, (e) ``debug_cluster_crash`` at 64 frames; (f) ran inside
+    phase 3e's soak (``soak_cluster``). Returns the phase's summary."""
+    import torch
+    from vilgod_tpu_torch.tools import (debug_band_width, debug_cluster_crash,
+                                        debug_cluster_stepwise,
+                                        debug_ground_scale, ground_oracle)
+
+    seconds = {"f": soak_cluster["seconds"]}
+
+    def part(key, label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        log(f"3g ({key}) {label}: " + json.dumps(
+            {"device": smi, "seconds": seconds[key], **out}))
+        torch.cuda.empty_cache()
+
+    part("a", "native ground oracle against segment_ground",
+         lambda: ground_oracle.run("cuda"))
+
+    def ground_scale():
+        rows, masks = debug_ground_scale.run(GROUND_SCALE_FPADS, device="cuda")
+        last = masks[max(GROUND_SCALE_FPADS)]
+        for fp, m in masks.items():
+            if not torch.equal(m, last[:fp]):
+                raise AssertionError(f"debug_ground_scale: the {fp}-frame "
+                                     f"masks differ from the first {fp} "
+                                     f"frames of the longest run's")
+        return {"rows": rows}
+
+    part("b", "debug_ground_scale", ground_scale)
+
+    def band_width():
+        out = debug_band_width.run(geo_state, cfg, device="cuda")
+        return {"rows": out["rows"],
+                "equal_across": debug_band_width.check_widths(out)}
+
+    part("c", "debug_band_width", band_width)
+    part("d", "debug_cluster_stepwise", lambda: {
+        k: v for k, v in debug_cluster_stepwise.run(
+            STEPWISE_FRAMES, device="cuda").items() if k != "det_n"})
+    part("e", "debug_cluster_crash",
+         lambda: debug_cluster_crash.run(CRASH_FRAMES, "cuda"))
+    log("3g (f) debug_soak_cluster --launch on the soak's 200-frame state: "
+        + json.dumps(soak_cluster))
+    return {"device": smi, "phase_s": sum(seconds.values()),
+            "seconds": seconds}
+
+
+def check_tools(ds, cfg, geo_state, kernels, smi, soak_cluster):
     """Phase 3e: the tools of ``vilgod_tpu_torch/tools`` and the chained
     ground scan on the card: (a) the oracle's dAP, (c) the chained scan's
     masks, (d) the microbench's ground (with the chained scan at k = 1, 3),
     cluster and classify sections on phase 3's inputs, (b) the 199-frame
     soak, with the chained scan timed at k = 1, 5, 25 on its first
-    sequence's 200-frame bucket. Returns the phase's summary."""
+    sequence's 200-frame bucket and phase 3g (f) run on that sequence's
+    state (its summary into ``soak_cluster``). Returns the phase's
+    summary."""
     import torch
     from vilgod_tpu_torch.tools import microbench, soak
 
@@ -1591,11 +1694,15 @@ def check_tools(ds, cfg, geo_state, kernels, smi):
             pts, msk, g = microbench.ground_inputs(state, soak.build_cfg(False))
             bucket_rows.extend(microbench.chained_rows(
                 pts, msk, g, SOAK_CHAINS, MICROBENCH_REPS, dev))
+            del pts, msk
+            soak_cluster.update(check_soak_cluster(state, kernels, smi))
 
     kernels.reset_launches()
     report = soak.soak(soak.build_cfg(False), soak.FULL_SCENE, SOAK_FRAMES,
                        dev, inspect=time_chains)
-    launched = dict(kernels.LAUNCHES)
+    # phase 3g (f)'s launches ran inside the soak's hook
+    launched = {k: v - soak_cluster["launches"].get(k, 0)
+                for k, v in kernels.LAUNCHES.items()}
     for name in kernels.KERNEL_NAMES:
         if launched[name] <= 0:
             raise AssertionError(f"{name} never launched in the soak")
@@ -2352,13 +2459,20 @@ def main() -> int:
         shutil.rmtree(real)
 
         # ---- 3e. the tools and the chained ground scan ----
+        soak_cluster = {}
         log("tools and chained scan: " + json.dumps(check_tools(
-            ds, cfg, geo_state, kernels, smi)))
+            ds, cfg, geo_state, kernels, smi, soak_cluster)))
         torch.cuda.empty_cache()
 
         # ---- 3f. the multi-device layer on logical shards of the card ----
         log("multi-device layer: " + json.dumps(check_multi_device(
             clip_model, (kernels, vit_kernels, dense_kernels), smi)))
+
+        # ---- 3g. the native ground oracle and the debug tools ----
+        log("native oracle and debug tools: " + json.dumps(check_debug_tools(
+            geo_state, cfg, soak_cluster, smi)))
+        del soak_cluster
+        torch.cuda.empty_cache()
 
         # ---- 4. kernels against their plain versions ----
         rows = []

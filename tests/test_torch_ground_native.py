@@ -1,14 +1,18 @@
 """The port's single-frame ground segmentation
 (``vilgod_tpu_torch.ground.segment_ground``) against the C++ Patchwork++
-oracle of ``vilgod_tpu/ground/native`` on tests/test_ground_native.py's
-scenes and bounds, against the JAX package's ``segment_ground`` (masks,
-state and aux), and against one step of the port's own
-``segment_sequence``.
+oracle on tests/test_ground_native.py's scenes and bounds, against the
+JAX package's ``segment_ground`` (masks, state and aux), and against one
+step of the port's own ``segment_sequence``; the port's own oracle
+(``vilgod_tpu_torch.ground.native``) on that file's four cases, equal bit
+for bit to the JAX package's, and built at once by two processes.
 
-The oracle is compiled from ``patchwork.cpp`` into this module's own
-temporary directory (its loader builds next to the source otherwise, and
-another test worker may be doing the same at the same moment)."""
+The JAX package's oracle is compiled from its ``patchwork.cpp`` into this
+module's own temporary directory (its loader builds next to the source
+otherwise, and another test worker may be doing the same at the same
+moment); the port's builds into ``build/native/``."""
 import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,9 +23,11 @@ import vilgod_tpu.ground.native as native_mod
 from vilgod_tpu.ground import segment_ground as jax_segment_ground
 from vilgod_tpu.ground import init_ground_state as jax_init_state
 from vilgod_tpu.ground.native import NativePatchwork
+import vilgod_tpu_torch.ground.native as port_native
 from vilgod_tpu_torch.data import SyntheticDataset
 from vilgod_tpu_torch.ground import (GroundConfig, init_ground_state,
                                      segment_ground, segment_sequence)
+from vilgod_tpu_torch.tools import ground_oracle
 
 from test_ground import make_scene, pad
 
@@ -139,3 +145,101 @@ def test_segment_ground_matches_jax_and_segment_sequence():
     np.testing.assert_array_equal(g_seq.numpy(), np.stack(per_frame))
     for a, b in zip(state_seq, state_t):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the port's own oracle
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cases():
+    """tests/test_ground_native.py's four cases with the port's oracle and
+    the port's ``segment_ground`` on the CPU."""
+    return ground_oracle.run("cpu")
+
+
+def test_port_oracle_flat_scene(cases):
+    assert cases["recall"] > 0.9, cases
+    assert cases["false_positive"] < 0.15, cases
+
+
+def test_port_oracle_against_segment_ground(cases):
+    assert cases["iou"] > 0.97, cases
+
+
+def test_port_oracle_adapts_sensor_height(cases):
+    assert abs(cases["sensor_height"] - 1.723) < 0.2, cases
+
+
+def test_port_oracle_sequence_against_segment_ground(cases):
+    assert len(cases["agreement"]) == 6
+    assert min(cases["agreement"]) > 0.999, cases
+
+
+def test_port_oracle_equals_jax_oracle(oracle):
+    """The same code and flags: equal masks on every frame of the four
+    cases' scenes, and the same sensor height after the 6-frame
+    sequence."""
+    rng = np.random.default_rng(666)
+    cfg = GroundConfig(patch_capacity=512)
+    port, jax_native = port_native.NativePatchwork(cfg), oracle(cfg)
+    for _ in range(4):
+        pts, _ = ground_oracle.flat_scene(rng)
+        np.testing.assert_array_equal(port.segment(pts),
+                                      jax_native.segment(pts))
+    assert port.sensor_height == jax_native.sensor_height
+    seq_cfg = GroundConfig(patch_capacity=512, min_range=1.5)
+    port, jax_native = port_native.NativePatchwork(seq_cfg), oracle(seq_cfg)
+    for pts in ground_oracle.sequence_frames():
+        g = port.segment(pts)
+        assert g.dtype == bool and g.sum() > 1000
+        np.testing.assert_array_equal(g, jax_native.segment(pts))
+    assert port.sensor_height == jax_native.sensor_height
+
+
+def test_port_oracle_builds_under_build_native_only():
+    """The library is named by the source's and flags' hash and lives in
+    the checkout's ``build/native/``, not beside the source; the package
+    exports the JAX package's two names."""
+    path = port_native.library_path()
+    assert path.parent == Path(port_native.__file__).resolve(
+    ).parents[3] / "build" / "native"
+    assert path.name.startswith("libpatchwork_") and path.suffix == ".so"
+    port_native.load_library()
+    assert path.exists()
+    assert not list(Path(port_native.SOURCE).parent.glob("*.so"))
+    assert set(port_native.__all__) == {"NativePatchwork", "load_library"}
+    # the C side reads 4 floats a point: fewer columns never reach it
+    with pytest.raises(ValueError, match="must be"):
+        port_native.NativePatchwork().segment(np.zeros((10, 3), np.float32))
+    assert port_native.NativePatchwork.__module__.startswith(
+        "vilgod_tpu_torch.")
+
+
+_RACE = """
+import sys
+from pathlib import Path
+import numpy as np
+import vilgod_tpu_torch.ground.native as native
+from vilgod_tpu_torch.tools.ground_oracle import flat_scene
+native.BUILD_DIR = Path(sys.argv[1])
+g = native.NativePatchwork().segment(
+    flat_scene(np.random.default_rng(1))[0])
+print(int(g.sum()))
+"""
+
+
+def test_two_processes_build_the_oracle_at_once(tmp_path):
+    """Two processes that find ``build/native/`` empty both build, and both
+    load a whole library and segment: each build goes to its own
+    temporary file and is renamed into place."""
+    build = tmp_path / "build" / "native"
+    procs = [subprocess.Popen([sys.executable, "-c", _RACE, str(build)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    assert outs[0][0] == outs[1][0] and int(outs[0][0]) > 1000
+    assert [f.name for f in build.iterdir()] == [
+        port_native.library_path().name]

@@ -98,8 +98,8 @@ def test_port_runs_without_jax(tmp_path):
     """vilgod_tpu_torch never imports jax: with jax unimportable the
     package (the CLIP models, the classification and box stages, tracking,
     eval, the dense kernels, the dataset adapters and export, the run tool,
-    the evaluate tool, the bench and the multi-device layer included)
-    imports and runs a stage;
+    the evaluate tool, the bench, the multi-device layer, the native
+    ground oracle and the debug tools included) imports and runs a stage;
     asking for cuda without a card raises."""
     code = """
 import sys
@@ -117,6 +117,11 @@ from vilgod_tpu_torch.tools import bench, evaluate, run
 from vilgod_tpu_torch import ground, ops, parallel, utils
 from vilgod_tpu_torch.data import argoverse, export, openpcdet, waymo
 from vilgod_tpu_torch.eval import sequence_eval, waymo_tf
+from vilgod_tpu_torch.ground import native
+from vilgod_tpu_torch.tools import (debug_band_width, debug_cluster_crash,
+                                    debug_cluster_stepwise,
+                                    debug_ground_scale, debug_soak_cluster,
+                                    ground_oracle)
 cap = {"max_points": 16384, "max_ng_points": 8192, "max_cluster_input": 8192}
 cfg = waymo_config(capacity=cap, pipeline_active=["mask_ground_points"])
 seq = SyntheticDataset(n_sequences=1, n_frames=4, seed=12, n_ground=3000,

@@ -125,6 +125,26 @@ def full_width(n_data: int) -> int:
     return -(-n_data // kernels.TD) * kernels.TD
 
 
+def banded_scan(q_t8, d_t8, starts, tq: int, w_band: int, inner):
+    """Scan query blocks against their data windows.
+
+    q_t8/d_t8: (8, N) transposed sentinel-masked clouds (``prep_t8``
+    layout); ``inner(q_block (8, tq), d_window (8, w_band), start)`` ->
+    pytree of (tq, ...) tensors, ``start`` the window's first data rank
+    (``starts[b]`` clamped into [0, n_d - w_band], where the window
+    lies). Returns the pytree with leading axis N, in sorted query order.
+    The blocks are walked as the plain versions walk them
+    (:func:`.kernels.window_spans`), one ``inner`` call a block."""
+    from torch.utils import _pytree
+
+    outs = [inner(q_t8[:, b * tq:(b + 1) * tq], d_t8[:, s:e], s)
+            for b, s, e in kernels.window_spans(starts, d_t8.shape[1],
+                                                w_band)]
+    leaves, spec = zip(*map(_pytree.tree_flatten, outs))
+    return _pytree.tree_unflatten(
+        [torch.cat(parts) for parts in zip(*leaves)], spec[0])
+
+
 # ---------------------------------------------------------------------------
 # banded ops over PRE-SORTED clouds (results follow the sorted query order)
 # ---------------------------------------------------------------------------

@@ -90,17 +90,24 @@ def _plain_chunk(device) -> int:
     return 512 if device.type == "cpu" else 2048
 
 
-def _tiles(q_t8, d_t8, starts, tq, w, ndim, ends=None):
-    """(query slice, global rank of the tile's first column, dist2 tile)
-    over every query block's span [s, e): s clamped into [0, n_d - w],
-    e = s + w, or min(ends[b], s + w) where ``ends`` is given (an empty
-    span yields no tile)."""
-    n_d = d_t8.shape[1]
-    chunk = _plain_chunk(q_t8.device)
+def window_spans(starts, n_d: int, w: int, ends=None):
+    """(block, s, e) of every query block's span [s, e) of the sorted data:
+    s is ``starts[b]`` clamped into [0, n_d - w] (as
+    ``jax.lax.dynamic_slice`` clamps a window), e = s + w, or
+    min(ends[b], s + w) where ``ends`` is given (e == s: an empty span).
+    The one block walk of the plain versions and ``banded.banded_scan``."""
     ends = [None] * starts.numel() if ends is None else ends.tolist()
     for b, (s, e) in enumerate(zip(starts.tolist(), ends)):
         s = min(max(s, 0), n_d - w)
-        e = s + w if e is None else max(s, min(e, s + w))
+        yield b, s, (s + w if e is None else max(s, min(e, s + w)))
+
+
+def _tiles(q_t8, d_t8, starts, tq, w, ndim, ends=None):
+    """(query slice, global rank of the tile's first column, dist2 tile)
+    over every query block's span (:func:`window_spans`; an empty span
+    yields no tile)."""
+    chunk = _plain_chunk(q_t8.device)
+    for b, s, e in window_spans(starts, d_t8.shape[1], w, ends):
         qs = slice(b * tq, (b + 1) * tq)
         for k in range(s, e, chunk):
             hi = min(k + chunk, e)

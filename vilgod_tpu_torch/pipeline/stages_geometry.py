@@ -424,6 +424,17 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
     return [torch.stack(x) for x in zip(*outs)]
 
 
+def chunk_starts(f_pad: int, chunk: int) -> list[int]:
+    """First frames of the clustering stage's chunks of ``chunk`` frames
+    over ``f_pad``: a full-size final chunk is anchored at the bucket end
+    (pages are independent, so the overlap recomputes identical
+    frames)."""
+    starts = list(range(0, f_pad - chunk + 1, chunk))
+    if starts[-1] + chunk < f_pad:
+        starts.append(f_pad - chunk)
+    return starts
+
+
 def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
                        force: bool = False, **_):
     """Spatio-temporal density clustering + detection tables over chunks of
@@ -479,13 +490,8 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
             return cluster_frames_chunk(*dev_args, stats, f0, seed,
                                         chunk=chunk, **kernel_kw)
 
-    starts = list(range(0, f_pad - chunk + 1, chunk))
-    if starts[-1] + chunk < f_pad:
-        # full-size final chunk anchored at the bucket end (pages are
-        # independent, so the overlap recomputes identical frames)
-        starts.append(f_pad - chunk)
     outs, prev_end = [], 0
-    for f0 in starts:
+    for f0 in chunk_starts(f_pad, chunk):
         o = run_chunk(f0)
         outs.append([a[prev_end - f0:] for a in o])
         prev_end = f0 + chunk

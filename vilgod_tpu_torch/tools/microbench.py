@@ -37,6 +37,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +46,7 @@ SECTIONS = ("ground", "entropy", "cluster", "classify")
 Z_OFFSET = 1.723
 
 
-def _sync(device):
+def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -62,14 +63,14 @@ def timed(label: str, fn, reps: int, device) -> dict:
     """One untimed call, then the median of ``reps`` synchronised calls;
     the row {part, ms, launches per call (non-zero only)}."""
     fn()
-    _sync(device)
+    sync(device)
     before = _launches()
     ts = []
     for _ in range(reps):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         fn()
-        _sync(device)
+        sync(device)
         ts.append(time.perf_counter() - t0)
     launches = {k: (v - before[k]) / reps for k, v in _launches().items()
                 if v > before[k]}
@@ -229,19 +230,27 @@ def _paged_passes(feats, fmask, pages, chunk, presorted, eps, min_samples):
             "propagate": propagate, "nearest": nearest}
 
 
-def bench_cluster(state, cfg, reps: int, device) -> list:
-    from ..ops.cluster import dbscan_labels_paged, paged_cell_sort
-    from ..ops.neighbors import knn_labels_paged
-    from ..pipeline.stages_geometry import (frame_select_stats_all,
-                                            select_cluster_input,
-                                            window_origins)
+class ClusterInputs(NamedTuple):
+    """The clustering stage's inputs on a state's buffers: its (ng_xyz,
+    ng_mask, ng_entropy, frame_valid) arguments, their selection
+    statistics, the selection of the first chunk of pages (``select()``)
+    and its result, the page capacity and the pages in a chunk."""
+    dev_args: tuple
+    stats: tuple
+    select: Callable
+    feats: torch.Tensor
+    fmask: torch.Tensor
+    cap_in: int
+    chunk: int
 
-    print("== cluster ==")
-    pre_cfg = cfg.get("preprocessor", {}).get("clustering", {})
-    model = pre_cfg.get("model", {})
-    eps = model.get("cluster_selection_epsilon", 0.15)
-    min_samples = model.get("min_samples", 5)
-    mcs = model.get("min_cluster_size", 15)
+
+def cluster_inputs(state, cfg) -> ClusterInputs:
+    """The first chunk's cluster input as the clustering stage builds it
+    (``cap_in`` and ``chunk`` by its rules; the JAX package's
+    ``tools/microbench._cluster_inputs``)."""
+    from ..pipeline.stages_geometry import (frame_select_stats_all,
+                                            select_cluster_input)
+
     seed = cfg.get("random_seed", 666)
     xyz, ngm, fv = _entropy_args(state)
     ent = state.device("ng_entropy", xyz.shape[0], xyz.shape[1])
@@ -250,8 +259,6 @@ def bench_cluster(state, cfg, reps: int, device) -> list:
     cap_in = min(cfg.get("capacity", {}).get("max_cluster_input", 65536),
                  max(4096, -(-n_ng // 2048) * 2048))
     chunk = min(xyz.shape[0], 32)
-    rows = [timed("frame_select_stats_all",
-                  lambda: frame_select_stats_all(*dev_args), reps, device)]
     stats = frame_select_stats_all(*dev_args)
 
     def select():
@@ -259,9 +266,29 @@ def bench_cluster(state, cfg, reps: int, device) -> list:
                for i in range(chunk)]
         return [torch.stack(x) for x in zip(*sel)]
 
-    rows.append(timed(f"select_cluster_input ({chunk} pages)", select, reps,
-                      device))
     feats, fmask, _, _ = select()
+    return ClusterInputs(dev_args, stats, select, feats, fmask, cap_in, chunk)
+
+
+def bench_cluster(state, cfg, reps: int, device) -> list:
+    from ..ops.cluster import dbscan_labels_paged, paged_cell_sort
+    from ..ops.neighbors import knn_labels_paged
+    from ..pipeline.stages_geometry import (frame_select_stats_all,
+                                            window_origins)
+
+    print("== cluster ==")
+    model = cfg.get("preprocessor", {}).get("clustering", {}).get("model", {})
+    eps = model.get("cluster_selection_epsilon", 0.15)
+    min_samples = model.get("min_samples", 5)
+    mcs = model.get("min_cluster_size", 15)
+    dev_args, _, select, feats, fmask, cap_in, chunk = cluster_inputs(state,
+                                                                       cfg)
+    xyz, ngm, _, fv = dev_args
+    n_ng = xyz.shape[1]
+    rows = [timed("frame_select_stats_all",
+                  lambda: frame_select_stats_all(*dev_args), reps, device),
+            timed(f"select_cluster_input ({chunk} pages)", select, reps,
+                  device)]
     occ = fmask.sum(dim=1).cpu().numpy()
     print(f"  pages={chunk} cap_in={cap_in} points a page: min={occ.min()} "
           f"median={int(np.median(occ))} max={occ.max()}")
@@ -354,7 +381,7 @@ def run(sections, scale: str = "full", reps: int = 3, device=None,
     state, cfg = build_state(scale, device)
     mask_ground_points(state, cfg)
     calculate_entropy_scores(state, cfg)
-    _sync(device)
+    sync(device)
     rows = []
     if "ground" in sections:
         rows += bench_ground(state, cfg, reps, device, chains)

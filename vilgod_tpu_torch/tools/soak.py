@@ -51,13 +51,13 @@ LATE_FRAMES = 50
 PEAK_TOLERANCE = 0.05
 
 
-def build_cfg(smoke: bool):
-    """The soak's configuration: stages 1-5 and 7-9 at the smoke or the
-    bench's full caps."""
+def build_cfg(smoke: bool, stages=STAGES):
+    """The soak's configuration: stages 1-5 and 7-9 (or ``stages``) at the
+    smoke or the bench's full caps."""
     from ..config import waymo_config
     from .scenes import CAPS
     return waymo_config(capacity=SMOKE_CAPS if smoke else CAPS,
-                        pipeline_active=STAGES)
+                        pipeline_active=list(stages))
 
 
 def run_sequence(cfg, scene: dict, seed: int, n_frames: int, device) -> dict:
