@@ -156,12 +156,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of the main path's largest ``banded_tile_min_label`` call against that
    block's window, and on a ragged 1000 x 1500 call cut from one window
    with its data 100 lanes on (labels equal), its 1001 x 1499 call cut
-   the same way; the ViT kernels also on a ragged batch of 3 images
-   (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3), with a line
-   that splits
+   the same way; the ViT kernels also on a ragged batch of 3 images and
+   ``fused_attention_proj`` on 16 images of 257 tokens (its two-pass core;
+   the main path's 197 take the one-pass core) (assert_close rtol 1.6e-2,
+   atol 1e-2, mean |diff| < 1e-3), with a line that splits
    ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
-   core and output GEMM (ms, TFLOP/s, GB/s); kernel, plain, torch-composite
-   and bound times; then two public ops no stage calls, on the card and on
+   core and output GEMM (ms, TFLOP/s, GB/s, bound, and each part's
+   PyTorch counterpart timed alone); kernel, plain, torch-composite and
+   bound times; then two public ops no stage calls, on the card and on
    the CPU: ``entropy_scores_window`` of one main-path non-ground frame
    against the entropy stage's 15-frame window (each window frame's count
    equal, scores within 1e-6, the kernel it launched reported) and
@@ -1065,15 +1067,32 @@ def ragged(name, args, n_images=3):
     return tuple(a)
 
 
+def long_sequence(args, n_images=16, t=257, seed=0):
+    """The attention call's weights on ``n_images`` images of ``t`` tokens
+    (ViT-L/14's length: past the one-pass core's 208, the two-pass core)
+    drawn from ``seed``."""
+    import torch
+
+    x = args[0]
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    xl = torch.randn(n_images, t, x.shape[-1], device=x.device,
+                     generator=gen).mul_(0.5).to(x.dtype)
+    return (xl, *args[1:])
+
+
 def check_vit_kernel(name, args, vit_kernels):
-    """Kernel vs plain version on the main path's ``args`` and on a ragged
-    batch of 3 images; kernel, plain, composite and bound times."""
+    """Kernel vs plain version on the main path's ``args``, on a ragged
+    batch of 3 images and, for the attention, on 16 images of 257 tokens;
+    kernel, plain, composite and bound times."""
     import torch
 
     kernel = getattr(vit_kernels, name).wrapped
     plain = vit_kernels.PLAIN[name]
     err, mean_err = 0.0, 0.0
-    for a in (args, ragged(name, args)):
+    calls = [args, ragged(name, args)]
+    if name == "fused_attention_proj":
+        calls.append(long_sequence(args))
+    for a in calls:
         got = kernel(*a)
         torch.cuda.synchronize()
         want = plain(*a)
@@ -1103,9 +1122,15 @@ def check_vit_kernel(name, args, vit_kernels):
 def attention_split(args, vit_kernels):
     """``fused_attention_proj`` on ``args`` by part: the LayerNorm pass,
     the qkv GEMM, the attention core and the output GEMM, each timed alone
-    (ms), the GEMMs' TFLOP/s and the other parts' GB/s (each input read
-    once, each output written once)."""
+    (ms), with its TFLOP/s and GB/s (each input read once, each output
+    written once), its bound (the larger of the operations over the bf16
+    peak and the bytes over the memory rate) and its PyTorch counterpart
+    timed alone on the same inputs (``library_ms``: ``F.layer_norm``,
+    ``F.linear``, ``F.scaled_dot_product_attention`` on (B, heads, T, 64)
+    views of qkv, ``F.linear`` plus the residual), never called by the
+    port."""
     import torch
+    import torch.nn.functional as F
 
     x, lns, lnb, wq, bq, wo, bo, heads = args
     b, t, width = x.shape
@@ -1114,24 +1139,44 @@ def attention_split(args, vit_kernels):
     h = vit_kernels.layernorm_cuda(x2, lns, lnb)
     qkv = vit_kernels.gemm_cuda(h, wq, bq)
     att = vit_kernels.attention_core_cuda(qkv, b, t, heads)
+    wq_t, wo_t = wq.t().contiguous(), wo.t().contiguous()
+    lns16, lnb16 = lns.to(x.dtype), lnb.to(x.dtype)
+    q, k, v = qkv.view(b, t, 3, heads, -1).unbind(2)
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+
+    def size(*tensors):
+        return sum(a.numel() * a.element_size() for a in tensors)
+
+    # part: (kernel, library call, operations, bytes)
     parts = {
         "layernorm": (lambda: vit_kernels.layernorm_cuda(x2, lns, lnb),
-                      0, 2 * x2.numel() * 2),
+                      lambda: F.layer_norm(x2, (width,), lns16, lnb16,
+                                           eps=1e-5),
+                      0, size(x2, lns, lnb, h)),
         "qkv_gemm": (lambda: vit_kernels.gemm_cuda(h, wq, bq),
-                     2 * m * width * 3 * width, 0),
+                     lambda: F.linear(h, wq_t, bq),
+                     2 * m * width * 3 * width, size(h, wq, bq, qkv)),
         "attention_core": (lambda: vit_kernels.attention_core_cuda(
-            qkv, b, t, heads), 4 * b * t * t * width,
-            (qkv.numel() + att.numel()) * 2),
+            qkv, b, t, heads), lambda: F.scaled_dot_product_attention(
+                q, k, v), 4 * b * t * t * width, size(qkv, att)),
         "out_gemm": (lambda: vit_kernels.gemm_cuda(att, wo, bo, res=x2),
-                     2 * m * width * width, 0),
+                     lambda: F.linear(att, wo_t, bo) + x2,
+                     2 * m * width * width,
+                     size(att, wo, bo, x2) + size(x2)),  # + the output
     }
     out = {"x": list(x.shape)}
-    for part, (fn, flop, nbytes) in parts.items():
+    for part, (fn, library, flop, nbytes) in parts.items():
         fn()
         t_ms = cuda_ms(fn, 3)
+        library()
+        t_ops = flop / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         out[part] = {"ms": t_ms, "tflop_per_s": flop / t_ms / 1e9,
-                     "gb_per_s": nbytes / t_ms / 1e6}
-    del h, qkv, att
+                     "gb_per_s": nbytes / t_ms / 1e6,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": cuda_ms(library, 3)}
+    del h, qkv, att, q, k, v
     torch.cuda.empty_cache()
     return out
 

@@ -1,11 +1,14 @@
 """The plain PyTorch versions of the three ViT kernels
 (vilgod_tpu_torch/models/vit_kernels.py) against the JAX package's Pallas
 kernels run in interpret mode, at the shapes of tests/test_clip.py:
-attention (3, 197, 256) with 4 heads, MLPs (300, 256 -> 1024). In f32 they
-agree within 1e-4; in bf16 within the tolerance the kernels are held to on
-the card (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3): the
-same rounding points, products in another summation order. On the CPU the
-wrappers take these plain versions and count no launch."""
+attention (3, T, 256) with 4 heads at T = 197 and at the edge of the CUDA
+core's one-pass path (208, the longest it takes, and 209, the shortest of
+the two-pass path), MLPs (300, 256 -> 1024). In f32 they agree within
+1e-4; in bf16 within the tolerance the kernels are held to on the card
+(assert_close rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3): the same
+rounding points, products in another summation order. On the CPU the
+wrappers take these plain versions and count no launch. The text patches
+of ``tools/vit_variants.py`` are held to the CUDA source."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,8 @@ import jax.numpy as jnp
 
 from vilgod_tpu.models import vit_kernels as VJ
 from vilgod_tpu_torch.models import vit_kernels as VT
+from vilgod_tpu_torch.tools import vit_variants
+from vilgod_tpu_torch.utils.cuda_build import CSRC
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,9 +61,13 @@ def _compare(got, want, dt):
         assert np.abs(got - want).mean() < 1e-3
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_attention_proj_plain_matches_pallas(dt):
-    b, t, w, heads = 3, 197, 256, 4
+# T = 197 keeps the ids it had before the boundary cases were added
+@pytest.mark.parametrize("t,dt", [
+    pytest.param(t, dt, id=dt if t == 197 else f"{t}-{dt}")
+    for t in (197, VT.ONE_PASS_TOKENS, VT.ONE_PASS_TOKENS + 1)
+    for dt in ("f32", "bf16")])
+def test_attention_proj_plain_matches_pallas(t, dt):
+    b, w, heads = 3, 256, 4
     args = _inputs(0, {"x": ((b, t, w), 0.3, 0), "ln_s": ((w,), 0.1, 1.0),
                        "ln_b": ((w,), 0.05, 0), "wqkv": ((w, 3 * w), 0.05, 0),
                        "bqkv": ((3 * w,), 0.01, 0), "wout": ((w, w), 0.05, 0),
@@ -115,3 +124,13 @@ def test_switches_follow_the_jax_conditions(monkeypatch):
         monkeypatch.setenv(var, "1")
         assert fn(bf16, 768) and not fn(torch.float32, 768)
         assert not fn(bf16, 64)
+
+
+@pytest.mark.parametrize("variant", sorted(vit_variants.VARIANTS))
+def test_vit_variant_anchors_occur_once_in_the_source(variant):
+    """Each variant's text patches apply to ``csrc/vit.cu`` as it is: every
+    anchor occurs exactly once, so a change of the source cannot silently
+    leave a variant timing the unpatched kernels."""
+    src = (CSRC / "vit.cu").read_text()
+    patched = vit_variants.patched_source(variant, src)
+    assert (patched == src) == (variant == "base")

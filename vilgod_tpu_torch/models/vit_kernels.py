@@ -14,12 +14,13 @@ Weights keep the flax layout (``kernel`` is (in, out)). Each wrapper takes
 its plain version only for CPU tensors; for CUDA tensors it composes the
 device functions of ``csrc/vit.cu`` (a LayerNorm pass, a bf16 GEMM on
 Hopper's tensor cores, TMA loads into an mbarrier ring and ``wgmma``, with
-a bias / quickGELU / residual epilogue, and an attention core with S and P
-in registers) or raises. They need sm_90a. The plain versions round where
-the Pallas kernels round (bf16 after the LayerNorm, after each bias, after
-quickGELU, after each head's ``w @ v``) and multiply the bf16 operands in
-f32 with TF32 off, so kernel and plain version differ only in summation
-order. ``LAUNCHES`` counts wrapper calls that launched their kernels.
+a bias / quickGELU / residual epilogue through shared memory and TMA, and
+an attention core with S and P in registers) or raises. They need
+sm_90a. The plain versions round where the Pallas kernels round (bf16
+after the LayerNorm, after each bias, after quickGELU, after each head's
+``w @ v``) and multiply the bf16 operands in f32 with TF32 off, so kernel
+and plain version differ only in summation order. ``LAUNCHES`` counts
+wrapper calls that launched their kernels.
 """
 from __future__ import annotations
 
@@ -143,6 +144,8 @@ def _check(name, device, **tensors):
 
 
 MAX_TOKENS = 320  # the attention core's longest sequence (vit.cu kMaxT)
+ONE_PASS_TOKENS = 208  # the one-pass core's longest (vit.cu kOnePassTiles)
+MAX_LN_WIDTH = 2048  # the LayerNorm pass holds a row in registers (kLnMaxVecs)
 
 
 def _check_dims(name, m, k, n):
@@ -157,6 +160,9 @@ def _check_dims(name, m, k, n):
 def layernorm_cuda(x2, ln_scale, ln_bias):
     """h = bf16(LN(x2)) over the rows of a (M, K) bf16 CUDA tensor (one
     launch, not counted)."""
+    if x2.shape[1] > MAX_LN_WIDTH:
+        raise ValueError(f"the CUDA LayerNorm pass takes rows of at most "
+                         f"{MAX_LN_WIDTH}, got {x2.shape[1]}")
     h = torch.empty_like(x2)
     launch(LIBRARY.load().vit_layernorm, x2.data_ptr(), x2.shape[0],
            x2.shape[1], ln_scale.data_ptr(), ln_bias.data_ptr(), h.data_ptr(),
@@ -178,7 +184,8 @@ def gemm_cuda(a, w, bias, res=None, gelu=False):
 
 def attention_core_cuda(qkv, b, t, heads):
     """softmax(q k^T / 8) v per (image, head) over qkv (B*T, 3W) bf16 ->
-    (B*T, W) (one launch, not counted)."""
+    (B*T, W) (one launch, not counted): the one-pass core up to
+    ``ONE_PASS_TOKENS``, the two-pass core up to ``MAX_TOKENS``."""
     width = heads * HEAD_DIM
     att = torch.empty((b * t, width), dtype=torch.bfloat16, device=qkv.device)
     launch(LIBRARY.load().vit_attention, qkv.data_ptr(), att.data_ptr(), b, t,
