@@ -1,0 +1,6 @@
+"""``calculate_entropy_scores``'s wall time over the window, a frame (ms)."""
+from . import per_frame_ms
+
+
+def read(ctx):
+    return per_frame_ms(ctx, "calculate_entropy_scores")

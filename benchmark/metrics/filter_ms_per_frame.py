@@ -1,0 +1,6 @@
+"""``filter_detections``'s wall time over the window, a frame (ms)."""
+from . import per_frame_ms
+
+
+def read(ctx):
+    return per_frame_ms(ctx, "filter_detections")

@@ -1,0 +1,5 @@
+"""From the process's start to the window's opening (s)."""
+
+
+def read(ctx):
+    return ctx["setup_s"]
