@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.plane import _cross, _dot3
+from ..utils import trace
 
 
 class GroundConfig(NamedTuple):
@@ -594,8 +595,9 @@ def _scan(points: torch.Tensor, mask: torch.Tensor, cfg: GroundConfig,
     (ground (F, N), the chains' final states, stacked)."""
     points = points.clone()
     points[..., 2] = points[..., 2] + (-z_offset)
-    return _scan_presorted(points, mask, _presort_frames(points, mask, cfg),
-                           cfg, chains)
+    with trace.span("ground.presort"):
+        presorted = _presort_frames(points, mask, cfg)
+    return _scan_presorted(points, mask, presorted, cfg, chains)
 
 
 def _scan_presorted(points, mask, presorted, cfg: GroundConfig, chains: int):
@@ -610,10 +612,12 @@ def _scan_presorted(points, mask, presorted, cfg: GroundConfig, chains: int):
                           * chains)
     ground = torch.empty((chains, steps, n), dtype=torch.bool,
                          device=points.device)
-    for t in range(steps):
-        ground[:, t], state, _ = _segment_presorted(
-            *(x[:, t] for x in pre[:2]), state, cfg,
-            *(x[:, t] for x in pre[2:]))
+    with trace.span("ground.scan"):
+        for t in range(steps):
+            ground[:, t], state, _ = _segment_presorted(
+                *(x[:, t] for x in pre[:2]), state, cfg,
+                *(x[:, t] for x in pre[2:]))
+        trace.count("steps", steps)
     return ground.reshape(f, n), state
 
 

@@ -22,6 +22,7 @@ import torch
 
 from ..ops.rasterize import render_cluster_views
 from ..ops.transforms import apply_transform
+from ..utils import trace
 from ..utils.common import resolve_device
 from .clip import (clip_vit_b16, convert_openai_checkpoint, init_clip_params,
                    normalize_images)
@@ -109,23 +110,28 @@ class ClipWrapper:
         def run(ng_xyz, tables, table_masks, frame_ids, cluster_ids,
                 transforms):
             dev = ng_xyz.device
-            fids = torch.as_tensor(frame_ids, dtype=torch.long, device=dev)
-            cids = torch.as_tensor(cluster_ids, dtype=torch.long, device=dev)
-            trs = torch.as_tensor(np.asarray(transforms, np.float32),
-                                  device=dev)
-            rows = torch.clamp(tables[fids, cids], min=0).long()  # (B, cap)
-            rmask = table_masks[fids, cids] & (cids >= 0)[:, None]
-            pts = ng_xyz[fids[:, None], rows]
-            ego = torch.where(rmask[..., None], apply_transform(pts, trs),
-                              0.0)
-            safe = rmask.clone()
-            safe[:, 0] = True
-            images = render_cluster_views(
-                ego, safe, resolution=resolution, depth=depth,
-                obj_ratio=obj_ratio, depth_bias=depth_bias,
-                image_size=image_size)                      # (B, V, S, S)
+            with trace.span("classify.render", device=True):
+                fids = torch.as_tensor(frame_ids, dtype=torch.long,
+                                       device=dev)
+                cids = torch.as_tensor(cluster_ids, dtype=torch.long,
+                                       device=dev)
+                trs = torch.as_tensor(np.asarray(transforms, np.float32),
+                                      device=dev)
+                rows = torch.clamp(tables[fids, cids], min=0).long()
+                rmask = table_masks[fids, cids] & (cids >= 0)[:, None]
+                pts = ng_xyz[fids[:, None], rows]              # (B, cap, 3)
+                ego = torch.where(rmask[..., None],
+                                  apply_transform(pts, trs), 0.0)
+                safe = rmask.clone()
+                safe[:, 0] = True
+                images = render_cluster_views(
+                    ego, safe, resolution=resolution, depth=depth,
+                    obj_ratio=obj_ratio, depth_bias=depth_bias,
+                    image_size=image_size)                  # (B, V, S, S)
             b, v, s, _ = images.shape
-            idx, score = self._classify_images(images.reshape(b * v, s, s))
+            with trace.span("classify.tower", device=True):
+                idx, score = self._classify_images(
+                    images.reshape(b * v, s, s))
             return idx.reshape(b, v), score.reshape(b, v)
 
         return run

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from ..utils.cuda_build import CudaLibrary, launch, stream_of
 
 # Query tiles of the JAX package (they define the banded block structure,
@@ -221,6 +222,19 @@ def _launch(name, fn, *args):
     LAUNCHES[name] += 1
 
 
+def _count_pairs(name, n_q, n_d, starts, tq, w, ndim, ends):
+    """While recording (:mod:`..utils.trace`): the (query, data) pairs
+    this call scans, ``tq`` x (e_b - s_b) summed over the query blocks'
+    spans as :func:`window_spans` gives them, charged as counter
+    ``pairs.<name>`` (a device tensor, read when the recording ends)."""
+    t = trace.current()
+    if t is None:
+        return
+    s = starts.clamp(0, n_d - w)
+    e = s + w if ends is None else torch.maximum(s, torch.minimum(ends, s + w))
+    t.launch(name, (e - s).sum(dtype=torch.int64) * tq, ndim, n_q, n_d)
+
+
 def _span_split(w: int) -> tuple[int, int]:
     """(gridDim.y, run) of the banded kernels: block (b, y) scans the y-th
     run of ``max(ceil(chunks / gridDim.y), run)`` 256-rank chunks of query
@@ -263,6 +277,8 @@ def banded_tile_count(q_t8, d_t8, starts, r2: float, tq: int, w: int,
     _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim, ends)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
            (torch.float32, torch.float32, torch.int32), q_t8.device)
+    _count_pairs(name, q_t8.shape[1], d_t8.shape[1], starts, tq, w, ndim,
+                 ends)
     if not q_t8.is_cuda:
         return count_plain(q_t8, d_t8, starts, r2, tq, w, ndim, ends)
     _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})
@@ -291,6 +307,8 @@ def banded_tile_count3(q_t8, d_t8, starts, levels2, tq: int, w: int,
            q_t8.device)
     if levels2.shape != (3,):
         raise ValueError(f"{name}: levels2 must be (3,), got {tuple(levels2.shape)}")
+    _count_pairs(name, q_t8.shape[1], d_t8.shape[1], starts, tq, w, ndim,
+                 ends)
     if not q_t8.is_cuda:
         return count3_plain(q_t8, d_t8, starts, levels2, tq, w, ndim, ends)
     _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})
@@ -324,6 +342,7 @@ def banded_tile_min_label(pts_t8, radius2, labels, starts, tq: int, w: int,
            pts_t8.device)
     if radius2.shape != (n,) or labels.shape != (n,):
         raise ValueError(f"{name}: radius2 and labels must be ({n},)")
+    _count_pairs(name, n, n, starts, tq, w, ndim, ends)
     if not pts_t8.is_cuda:
         return min_label_plain(pts_t8, radius2, labels, starts, tq, w, ndim,
                                big, ends)
@@ -355,6 +374,8 @@ def banded_tile_nearest(q_t8, d_t8, starts, tq: int, w: int, ndim: int = 3,
     _check_window(name, q_t8, d_t8.shape[1], starts, tq, w, ndim, ends)
     _check(name, {"q_t8": q_t8, "d_t8": d_t8, "starts": starts},
            (torch.float32, torch.float32, torch.int32), q_t8.device)
+    _count_pairs(name, q_t8.shape[1], d_t8.shape[1], starts, tq, w, ndim,
+                 ends)
     if not q_t8.is_cuda:
         return nearest_plain(q_t8, d_t8, starts, tq, w, ndim, ends)
     _check_copy16(name, d_t8.shape[1], {"d_t8": d_t8})

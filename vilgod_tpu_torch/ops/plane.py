@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import random as jrandom
 
 
@@ -66,9 +67,10 @@ def ransac_plane(points, mask, key: tuple[int, int], threshold: float = 0.1,
     masked points sit at -inf, so they are drawn only when fewer than
     three valid points exist."""
     n = points.shape[0]
-    gumbel = jrandom.gumbel(key, (iters, n), device=points.device)
-    logits = torch.where(mask, 0.0, float("-inf"))
-    triples = top3_first(logits[None, :] + gumbel)
+    with trace.span("filter.ransac_draw", device=True):
+        gumbel = jrandom.gumbel(key, (iters, n), device=points.device)
+        logits = torch.where(mask, 0.0, float("-inf"))
+        triples = top3_first(logits[None, :] + gumbel)
     p = points[triples]                                   # (iters, 3, 3)
     planes = plane_from_triplet(p[:, 0], p[:, 1], p[:, 2])
     dists = torch.abs(_dot3(points[None, :, :3], planes[:, None, :3])

@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.common import resolve_device
 from .stages_boxes import (evaluate_sequence, fit_bounding_boxes_simple,
                            propagate_labels, track_clusters)
@@ -55,6 +55,8 @@ class ZeroShotDetector:
         self.device = resolve_device(device)
         self.cache_path = (Path(cache_dir) / f"{name}.npz") if cache_dir else None
         self.stage_times: dict[str, float] = {}
+        # seconds run_sequences waited for this detector's prefetched build
+        self.prefetch_wait_s = 0.0
 
         caps = Capacity.from_cfg(cfg)
         n = source.sequence_length
@@ -72,22 +74,30 @@ class ZeroShotDetector:
 
     def process(self, spans: bool = False) -> list[dict]:
         """Run the active pipeline; returns the per-frame detection dicts of
-        ``evaluate_sequence`` (empty when that stage is not active). With
-        ``cfg["profile_dir"]`` set, the run goes under ``torch.profiler``
-        (the CPU, and the card's kernels on CUDA), each stage in a
-        ``record_function`` span named after it, and the Chrome trace is
-        written to ``<profile_dir>/<sequence>.trace.json``. ``spans`` puts
-        the stages in those spans for a profiler the caller runs."""
+        ``evaluate_sequence`` (empty when that stage is not active). The
+        run is span ``sequence`` (the sequence id: its name) and each stage
+        a span named after it (:mod:`..utils.trace`, recorded only inside
+        ``trace.recording``). With ``cfg["profile_dir"]`` set, the run goes
+        under ``torch.profiler`` (the CPU, and the card's kernels on CUDA)
+        and a recording whose spans are also ``record_function`` ranges,
+        and the Chrome trace is written to
+        ``<profile_dir>/<sequence>.trace.json``. ``spans`` is ignored
+        (``benchmark/harness.py`` still passes it)."""
         profile_dir = self.cfg.get("profile_dir")
-        if not profile_dir:
-            self._process_stages(trace=spans)
-        else:
+        prof = contextlib.nullcontext()
+        if profile_dir:
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
-                self._process_stages(trace=True)
+            prof = profile(activities=activities)
+        # every span also a profiler range, unless a recording is open
+        ranges = contextlib.nullcontext()
+        if profile_dir and trace.current() is None:
+            ranges = trace.recording(device=self.device, profiler_ranges=True)
+        with prof, ranges, trace.span("sequence", sequence=self.name):
+            self._process_stages()
+        if profile_dir:
             path = Path(profile_dir) / f"{self.name}.trace.json"
             path.parent.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(path))
@@ -96,10 +106,10 @@ class ZeroShotDetector:
             self.detection_3d_result_list = self.state.detection_3d_result_list
         return self.detection_3d_result_list
 
-    def _process_stages(self, trace: bool):
-        """The active stages in order; with ``trace``, each in a
-        ``record_function`` span named after it (only then: a span also
-        shows in the card's trace, as a device range over the stage)."""
+    def _process_stages(self):
+        """The active stages in order, each timed by one clock pair that is
+        also its span (a ``record_function`` range only where the
+        recording asks: a range also shows on the card's timeline)."""
         pipeline = {p["name"]: p.get("args", {})
                     for p in self.cfg.get("pipeline", [])}
         for task_name in self.cfg.get("pipeline_active", []):
@@ -110,16 +120,13 @@ class ZeroShotDetector:
             args = dict(pipeline[task_name])
             if task_name == "classification":
                 args["clip_model"] = self.clip_model
-            t0 = time.perf_counter()
             before = self.state.done.get(task_name, False)
-            span = (torch.profiler.record_function(task_name) if trace
-                    else contextlib.nullcontext())
-            with span:
+            with trace.timed(task_name) as tm:
                 fn(self.state, self.cfg, **args)
                 if self.device.type == "cuda":
                     # wall time per stage includes its device work
                     torch.cuda.synchronize(self.device)
-            self.stage_times[task_name] = time.perf_counter() - t0
+            self.stage_times[task_name] = tm.seconds
             log.info("[%s] %s: %.2fs", self.name, task_name,
                      self.stage_times[task_name])
             ran = self.state.done.get(task_name, False) and not before
@@ -160,9 +167,10 @@ def run_sequences(dataset, cfg, clip_model=None, cache_dir=None,
         return (Path(result_dir) / f"{seq_name}.npz") if result_dir else None
 
     def build(seq_name):
-        return ZeroShotDetector(dataset.sequence(seq_name), seq_name, cfg,
-                                clip_model=clip_model, cache_dir=cache_dir,
-                                device=device)
+        with trace.span("build", sequence=seq_name):
+            return ZeroShotDetector(dataset.sequence(seq_name), seq_name,
+                                    cfg, clip_model=clip_model,
+                                    cache_dir=cache_dir, device=device)
 
     all_results = []
     prebuilt = None  # (name, Future[ZeroShotDetector])
@@ -177,7 +185,9 @@ def run_sequences(dataset, cfg, clip_model=None, cache_dir=None,
                     all_results.extend(list(d["results"]))
                 continue
             if prebuilt is not None and prebuilt[0] == seq_name:
-                zsd = prebuilt[1].result()
+                with trace.timed("prefetch_wait", sequence=seq_name) as tm:
+                    zsd = prebuilt[1].result()
+                zsd.prefetch_wait_s = tm.seconds
             else:
                 if prebuilt is not None:
                     prebuilt[1].result()  # never abandon a running build

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..utils import trace
 from .state import CLS_NONE, MAPPED_CLASSES, SequenceState
 
 
@@ -178,21 +179,25 @@ def classification(state: SequenceState, cfg, clip_model=None,
         for j, (f, c) in enumerate(chunk):
             fids[j], cids[j] = f, c
             trs[j] = ego[f]
-        pending.append((chunk, classify(fids, cids, trs)))
+        with trace.span("classify.batch"):
+            trace.count("items_run", b)
+            trace.count("items_needed", len(chunk))
+            pending.append((chunk, classify(fids, cids, trs)))
     if pending:
-        packed = torch.cat([torch.cat([idx.float(), sc], dim=-1)
-                            for _, (idx, sc) in pending]).cpu().numpy()
-        v = packed.shape[-1] // 2
-        row0 = 0
-        for chunk, (idx_dev, _) in pending:
-            cls_idx = packed[row0:row0 + len(chunk), :v].astype(np.int32)
-            scores = packed[row0:row0 + len(chunk), v:]
-            row0 += idx_dev.shape[0]
-            for j, (f, c) in enumerate(chunk):
-                mapped = [mapping[class_list[k]] for k in cls_idx[j]]
-                name, score = _vote(mapped, scores[j])
-                state.det_cls[f, c] = MAPPED_CLASSES.index(name)
-                state.det_score[f, c] = score
+        with trace.span("classify.vote"):
+            packed = torch.cat([torch.cat([idx.float(), sc], dim=-1)
+                                for _, (idx, sc) in pending]).cpu().numpy()
+            v = packed.shape[-1] // 2
+            row0 = 0
+            for chunk, (idx_dev, _) in pending:
+                cls_idx = packed[row0:row0 + len(chunk), :v].astype(np.int32)
+                scores = packed[row0:row0 + len(chunk), v:]
+                row0 += idx_dev.shape[0]
+                for j, (f, c) in enumerate(chunk):
+                    mapped = [mapping[class_list[k]] for k in cls_idx[j]]
+                    name, score = _vote(mapped, scores[j])
+                    state.det_cls[f, c] = MAPPED_CLASSES.index(name)
+                    state.det_score[f, c] = score
     if image_out_dir:
         dump_depth_images(state, cfg, image_out_dir, image_size=image_size)
     state.done["classification"] = True

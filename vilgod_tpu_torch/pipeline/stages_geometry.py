@@ -25,6 +25,7 @@ from ..ops.entropy import entropy_sequence
 from ..ops.neighbors import knn_labels, knn_labels_paged, radius_count_self
 from ..ops.plane import _dot3, fit_ground_plane
 from ..ops.transforms import apply_transform
+from ..utils import trace
 from .state import SequenceState
 
 
@@ -122,8 +123,9 @@ def mask_ground_points(state: SequenceState, cfg, min_range: float = 1.5,
                                           chains) & mask
     else:
         ground = segment_sequence(points, mask, gcfg, z_offset)[0] & mask
-    ng_xyz, ng_mask, ng_src, cnts = _compact_sequence(
-        points, mask, ground, _transforms_to_ref(state, f_pad), cap_ng)
+    with trace.span("ground.compact"):
+        ng_xyz, ng_mask, ng_src, cnts = _compact_sequence(
+            points, mask, ground, _transforms_to_ref(state, f_pad), cap_ng)
     state.put_device("ground_mask", ground, f_pad, n_pts)
     state.put_device("ng_xyz", ng_xyz, f_pad, cap_ng)
     state.put_device("ng_mask", ng_mask, f_pad, cap_ng)
@@ -351,10 +353,12 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
     whole chunk; small pages cluster frame by frame. Returns the per-frame
     (labels, probs, det_n, det_center, det_static, table), each stacked
     over the chunk."""
-    sel = [select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid,
-                                f0 + i, seed, stats, n_frames_window, cap_in)
-           for i in range(chunk)]
-    feats, fmask, src_f, src_i = (torch.stack(x) for x in zip(*sel))
+    with trace.span("cluster.select"):
+        sel = [select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid,
+                                    f0 + i, seed, stats, n_frames_window,
+                                    cap_in)
+               for i in range(chunk)]
+        feats, fmask, src_f, src_i = (torch.stack(x) for x in zip(*sel))
     n_ng = ng_xyz.shape[1]
     dev = ng_xyz.device
     chunk_xyz = ng_xyz[f0:f0 + chunk]
@@ -369,10 +373,11 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
                               n_frames_window)
         presorted = paged_cell_sort(flat_feats, flat_mask, pages, chunk,
                                     origins=orig)
-        raw_labels, raw_probs = dbscan_labels_paged(
-            flat_feats, flat_mask, pages, chunk, eps=eps,
-            min_samples=min_samples, min_cluster_size=min_cluster_size,
-            presorted=presorted)
+        with trace.span("cluster.dbscan"):
+            raw_labels, raw_probs = dbscan_labels_paged(
+                flat_feats, flat_mask, pages, chunk, eps=eps,
+                min_samples=min_samples, min_cluster_size=min_cluster_size,
+                presorted=presorted)
         # a selected point's nearest data point is itself at distance 0, so
         # its label/probability copy back through the selection provenance
         # and only the unselected remainder runs the kNN pass
@@ -409,9 +414,10 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
         # small pages: per-frame clustering and label transfer
         lp = []
         for i in range(chunk):
-            raw_l, raw_p = dbscan_labels(feats[i], fmask[i], eps=eps,
-                                         min_samples=min_samples,
-                                         min_cluster_size=min_cluster_size)
+            with trace.span("cluster.dbscan"):
+                raw_l, raw_p = dbscan_labels(
+                    feats[i], fmask[i], eps=eps, min_samples=min_samples,
+                    min_cluster_size=min_cluster_size)
             lp.append(knn_labels(chunk_xyz[i], chunk_ngm[i], feats[i][:, :3],
                                  fmask[i], raw_l, raw_p, dist_threshold=0.2))
         labels = torch.stack([x[0] for x in lp])
@@ -459,7 +465,8 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
                 state.device("ng_entropy", f_pad, n_ng), fv)
     seed = cfg.get("random_seed", 666)
 
-    stats = frame_select_stats_all(*dev_args)
+    with trace.span("cluster.stats"):
+        stats = frame_select_stats_all(*dev_args)
     # the cluster input holds ~1/n_frames of each window frame: bounded by
     # one frame's occupancy bucket
     cap_in = min(cap_in, max(4096, -(-n_ng // 2048) * 2048))
@@ -492,7 +499,8 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
 
     outs, prev_end = [], 0
     for f0 in chunk_starts(f_pad, chunk):
-        o = run_chunk(f0)
+        with trace.span("cluster.chunk"):
+            o = run_chunk(f0)
         outs.append([a[prev_end - f0:] for a in o])
         prev_end = f0 + chunk
     stacked = [torch.cat([o[i] for o in outs]) for i in range(6)]
@@ -500,9 +508,10 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
     state.put_device("probs", stacked[1], f_pad, n_ng)
     tables = stacked[5]
     state._dev[("det_tables", f_pad, n_ng)] = (tables, tables >= 0)
-    state.det_n[...] = stacked[2][:f_total].cpu().numpy()
-    state.det_center[...] = stacked[3][:f_total].cpu().numpy()
-    state.det_static[...] = stacked[4][:f_total].cpu().numpy()
+    with trace.span("cluster.download"):
+        state.det_n[...] = stacked[2][:f_total].cpu().numpy()
+        state.det_center[...] = stacked[3][:f_total].cpu().numpy()
+        state.det_static[...] = stacked[4][:f_total].cpu().numpy()
     state.det_valid[...] = state.det_n > 0
     state.done["spatial_clustering"] = True
 
@@ -518,30 +527,32 @@ def _filter_metrics_frame(pts_raw, pts_mask, gnd_mask, t, xyz, ent, lab,
     (keyed by the frame's global index) and, by label straight from the
     flat cloud, each cluster's z extent, bbox spans, signed plane
     distances, hull area and entropy percentile."""
-    pts_ref = apply_transform(pts_raw[:, :3], t)
-    gmask = gnd_mask & pts_mask
-    gmask = torch.where(gmask.sum() >= 3, gmask, pts_mask)
-    key = jrandom.fold_in(jrandom.PRNGKey(seed), fnr)
-    plane = fit_ground_plane(pts_ref, gmask, key, iters=ransac_iters)
-    valid = nmask & (lab >= 0)
-    pmin = seg_ops.seg_min_by_label(xyz, lab, valid, max_clusters)
-    pmax = seg_ops.seg_max_by_label(xyz, lab, valid, max_clusters)
-    n = plane[:3]
-    d = (_dot3(xyz, n) + plane[3]) / torch.sqrt(_dot3(n, n))
-    return {
-        "plane": plane,
-        "height": pmax[:, 2] - pmin[:, 2],
-        "size": pmax - pmin,
-        "dmin": seg_ops.seg_min_by_label(d, lab, valid, max_clusters,
-                                         fill=1e9),
-        "dmax": seg_ops.seg_max_by_label(d, lab, valid, max_clusters,
-                                         fill=-1e9),
-        "hull_area": seg_ops.hull_area_by_label(xyz[:, :2], lab, valid,
-                                                max_clusters),
-        "ephe_p": seg_ops.seg_percentile_by_label(ent, lab, valid,
-                                                  max_clusters,
-                                                  ephe_percentile),
-    }
+    with trace.span("filter.plane", device=True):
+        pts_ref = apply_transform(pts_raw[:, :3], t)
+        gmask = gnd_mask & pts_mask
+        gmask = torch.where(gmask.sum() >= 3, gmask, pts_mask)
+        key = jrandom.fold_in(jrandom.PRNGKey(seed), fnr)
+        plane = fit_ground_plane(pts_ref, gmask, key, iters=ransac_iters)
+    with trace.span("filter.segments", device=True):
+        valid = nmask & (lab >= 0)
+        pmin = seg_ops.seg_min_by_label(xyz, lab, valid, max_clusters)
+        pmax = seg_ops.seg_max_by_label(xyz, lab, valid, max_clusters)
+        n = plane[:3]
+        d = (_dot3(xyz, n) + plane[3]) / torch.sqrt(_dot3(n, n))
+        return {
+            "plane": plane,
+            "height": pmax[:, 2] - pmin[:, 2],
+            "size": pmax - pmin,
+            "dmin": seg_ops.seg_min_by_label(d, lab, valid, max_clusters,
+                                             fill=1e9),
+            "dmax": seg_ops.seg_max_by_label(d, lab, valid, max_clusters,
+                                             fill=-1e9),
+            "hull_area": seg_ops.hull_area_by_label(xyz[:, :2], lab, valid,
+                                                    max_clusters),
+            "ephe_p": seg_ops.seg_percentile_by_label(ent, lab, valid,
+                                                      max_clusters,
+                                                      ephe_percentile),
+        }
 
 
 def filter_metrics_all(points, points_mask, ground_mask, transforms, ng_xyz,
@@ -555,6 +566,62 @@ def filter_metrics_all(points, points_mask, ground_mask, transforms, ng_xyz,
                                  ephe_percentile, ransac_iters, max_clusters)
            for f in range(points.shape[0])]
     return {k: torch.stack([m[k] for m in per]) for k in per[0]}
+
+
+def _combine_filters(filters, active, metrics: dict,
+                     n_pts: np.ndarray) -> np.ndarray:
+    """The reference's combinator over the host metrics and the point
+    counts (F, C): valid = (all(and) or any(or)) and all(and + required)
+    and n > 0."""
+    height = metrics["height"]
+    size = metrics["size"]           # (F, C, 3)
+    dmin, dmax = metrics["dmin"], metrics["dmax"]
+    hull_area = metrics["hull_area"]
+
+    and_v, or_v, req_v = [], [], []
+    for flt in filters:
+        name = flt["name"]
+        if name not in active:
+            continue
+        args = flt.get("args", {})
+        if name == "filter_by_number_points":
+            valid = (n_pts >= args.get("min_points", 0)) & (
+                n_pts <= args.get("max_points", 999999))
+        elif name == "filter_by_height":
+            valid = (height >= args["min_height"]) & (height <= args["max_height"])
+        elif name == "filter_by_plane_distance":
+            # signed directional distance
+            valid = (dmin <= args["max_min_height"]) & (dmax >= args["min_max_height"])
+        elif name == "filter_by_aspect_ratio":
+            mx = np.maximum(size[..., 0], size[..., 1])
+            mn = np.maximum(np.minimum(size[..., 0], size[..., 1]), 1e-9)
+            ar = mx / mn
+            valid = (ar <= args["max_aspect_ratio"]) & (
+                (ar >= args["min_aspect_ratio"])
+                | (size[..., 0] < 1.0) | (size[..., 1] < 1.0))
+        elif name in ("filter_by_volume", "filter_by_area"):
+            vol = name == "filter_by_volume"
+            metric = hull_area * height if vol else hull_area
+            lo = args.get("min_volume" if vol else "min_area", 0.0)
+            valid = (metric >= lo) & (n_pts >= 3)
+            hi = args.get("max_volume" if vol else "max_area")
+            if hi is not None:
+                valid &= metric <= hi
+        elif name == "filter_by_ephemeral_score":
+            valid = ~(metrics["ephe_p"] > args["min_percentile_pp_score"])
+        else:
+            continue  # unknown filters are skipped, as in the reference
+        if args.get("logic") == "and" and args.get("required", False):
+            req_v.append(valid)
+        elif args.get("logic") == "and":
+            and_v.append(valid)
+        elif args.get("logic") == "or":
+            or_v.append(valid)
+    shape = n_pts.shape
+    all_and = np.all(and_v, axis=0) if and_v else np.ones(shape, bool)
+    any_or = np.any(or_v, axis=0) if or_v else np.zeros(shape, bool)
+    all_req = np.all(req_v, axis=0) if req_v else np.ones(shape, bool)
+    return (all_and | any_or) & all_req & (n_pts > 0)
 
 
 def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
@@ -603,9 +670,10 @@ def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
         per_frame = filter_metrics_all(*(a[:f_total] for a in metric_args),
                                        seed, ephe_percentile, **kw)
     # one download for all fields
-    C = caps.max_clusters
-    packed = torch.cat([v.reshape(f_total, -1).to(torch.float32)
-                        for v in per_frame.values()], dim=1).cpu().numpy()
+    with trace.span("filter.download"):
+        packed = torch.cat([v.reshape(f_total, -1).to(torch.float32)
+                            for v in per_frame.values()],
+                           dim=1).cpu().numpy()
     metrics, col = {}, 0
     for k, v in per_frame.items():
         width = v[0].numel()
@@ -613,54 +681,7 @@ def filter_detections(state: SequenceState, cfg, force: bool = False, **_):
         col += width
     state.plane_ref[...] = metrics["plane"]
 
-    n_pts = state.det_n              # (F, C)
-    height = metrics["height"]
-    size = metrics["size"]           # (F, C, 3)
-    dmin, dmax = metrics["dmin"], metrics["dmax"]
-    hull_area = metrics["hull_area"]
-
-    and_v, or_v, req_v = [], [], []
-    for flt in filters:
-        name = flt["name"]
-        if name not in active:
-            continue
-        args = flt.get("args", {})
-        if name == "filter_by_number_points":
-            valid = (n_pts >= args.get("min_points", 0)) & (
-                n_pts <= args.get("max_points", 999999))
-        elif name == "filter_by_height":
-            valid = (height >= args["min_height"]) & (height <= args["max_height"])
-        elif name == "filter_by_plane_distance":
-            # signed directional distance
-            valid = (dmin <= args["max_min_height"]) & (dmax >= args["min_max_height"])
-        elif name == "filter_by_aspect_ratio":
-            mx = np.maximum(size[..., 0], size[..., 1])
-            mn = np.maximum(np.minimum(size[..., 0], size[..., 1]), 1e-9)
-            ar = mx / mn
-            valid = (ar <= args["max_aspect_ratio"]) & (
-                (ar >= args["min_aspect_ratio"])
-                | (size[..., 0] < 1.0) | (size[..., 1] < 1.0))
-        elif name in ("filter_by_volume", "filter_by_area"):
-            vol = name == "filter_by_volume"
-            metric = hull_area * height if vol else hull_area
-            lo = args.get("min_volume" if vol else "min_area", 0.0)
-            valid = (metric >= lo) & (n_pts >= 3)
-            hi = args.get("max_volume" if vol else "max_area")
-            if hi is not None:
-                valid &= metric <= hi
-        elif name == "filter_by_ephemeral_score":
-            valid = ~(metrics["ephe_p"] > args["min_percentile_pp_score"])
-        else:
-            continue  # unknown filters are skipped, as in the reference
-        if args.get("logic") == "and" and args.get("required", False):
-            req_v.append(valid)
-        elif args.get("logic") == "and":
-            and_v.append(valid)
-        elif args.get("logic") == "or":
-            or_v.append(valid)
-    shape = (f_total, C)
-    all_and = np.all(and_v, axis=0) if and_v else np.ones(shape, bool)
-    any_or = np.any(or_v, axis=0) if or_v else np.zeros(shape, bool)
-    all_req = np.all(req_v, axis=0) if req_v else np.ones(shape, bool)
-    state.det_valid[...] = (all_and | any_or) & all_req & (n_pts > 0)
+    with trace.span("filter.combine"):
+        state.det_valid[...] = _combine_filters(filters, active, metrics,
+                                                state.det_n)
     state.done["filter_detections"] = True

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import json
 import subprocess
 import sys
@@ -167,25 +168,28 @@ def stage_budget(cfg, ds, clip_model, device):
     from torch.profiler import ProfilerActivity, profile
 
     from ..pipeline.runner import ZeroShotDetector
+    from ..utils import trace
     name = ds.sequence_names()[0]
     seq = ds.sequence(name)
     cuda = device.type == "cuda"
 
-    def one_seq(spans):
+    def one_seq(recording):
         if cuda:
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        ZeroShotDetector(seq, name, cfg, clip_model=clip_model,
-                         device=device).process(spans=spans)
+        with recording:
+            ZeroShotDetector(seq, name, cfg, clip_model=clip_model,
+                             device=device).process()
         if cuda:
             torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
-    warm_wall = one_seq(spans=False)
+    warm_wall = one_seq(contextlib.nullcontext())
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     with profile(activities=activities) as prof:
-        one_seq(spans=True)
+        # the stages' spans as profiler ranges
+        one_seq(trace.recording(device=device, profiler_ranges=True))
     rows = stage_device_seconds(prof.profiler.kineto_results.events(),
                                 cfg["pipeline_active"], cuda)
     rows["host_setup_and_gaps"] = max(warm_wall - sum(rows.values()), 0.0)
