@@ -158,9 +158,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    block's window, and on a ragged 1000 x 1500 call cut from one window
    with its data 100 lanes on (labels equal), its 1001 x 1499 call cut
    the same way; the ViT kernels also on a ragged batch of 3 images and
-   ``fused_attention_proj`` on 16 images of 257 tokens (its two-pass core;
-   the main path's 197 take the one-pass core) (assert_close rtol 1.6e-2,
-   atol 1e-2, mean |diff| < 1e-3), with a line that splits
+   ``fused_attention_proj`` on 16 images of 257 tokens and on 16 of 577
+   at width 1024 with 16 heads (ViT-L/14@336px; both its long core; the
+   main path's 197 take the one-pass core), at ViT-L/14@336px's x (2048,
+   577, 1024) and its 512-image tail batch, every image held to the plain
+   version, and timed there with its own by-part line; then the nine stages
+   once more with the ViT-L/14@336px tower, its launches of kernel 5 by
+   core counted (every layer of every call the long core) (assert_close
+   rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3), with a line that splits
    ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
    core and output GEMM (ms, TFLOP/s, GB/s, bound, and each part's
    PyTorch counterpart timed alone); kernel, plain, torch-composite and
@@ -1084,7 +1089,7 @@ def ragged(name, args, n_images=3):
 
 def long_sequence(args, n_images=16, t=257, seed=0):
     """The attention call's weights on ``n_images`` images of ``t`` tokens
-    (ViT-L/14's length: past the one-pass core's 208, the two-pass core)
+    (ViT-L/14's length: past the one-pass core's 208, the long core)
     drawn from ``seed``."""
     import torch
 
@@ -1095,10 +1100,136 @@ def long_sequence(args, n_images=16, t=257, seed=0):
     return (xl, *args[1:])
 
 
+def vit_long_args(device, n_images=2048, t=577, width=1024, heads=16,
+                  seed=0):
+    """``fused_attention_proj``'s arguments at ViT-L/14@336px's widths: x
+    (n_images, t, width) bf16 (0.5 x unit normal) and one layer's weights
+    drawn from ``seed`` (LeCun-normal products, small biases, LayerNorm
+    scales about 1), as the tower's layers hold them."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0, offset=0.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device=device, generator=gen)
+                .mul_(scale).add_(offset).to(dtype).contiguous())
+
+    return (draw(n_images, t, width, scale=0.5),
+            draw(width, scale=0.1, offset=1.0, dtype=torch.float32),
+            draw(width, scale=0.05, dtype=torch.float32),
+            draw(width, 3 * width, scale=width ** -0.5),
+            draw(3 * width, scale=0.01),
+            draw(width, width, scale=width ** -0.5),
+            draw(width, scale=0.01), heads)
+
+
+def check_vit_long(vit_kernels, chunk=128, tail=512):
+    """``fused_attention_proj`` at ViT-L/14@336px's shape, x (2048, 577,
+    1024) bf16, 16 heads (the classifier's full batch of 512 items, four
+    views each: the long core): the kernel's whole output held to the plain
+    version over chunks of ``chunk`` images (its f32 logits of the whole
+    batch would take 44 GB), on that call and on the stage's tail batch of
+    ``tail`` images (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| <
+    1e-3 over the call); kernel, plain, torch-composite and bound times,
+    and the by-part line."""
+    import torch
+
+    name = "fused_attention_proj"
+    kernel = getattr(vit_kernels, name)
+    kernel = getattr(kernel, "wrapped", kernel)
+    plain = vit_kernels.PLAIN[name]
+    args = vit_long_args("cuda")
+    errs = {}
+    for n in (args[0].shape[0], tail):
+        call = (args[0][:n], *args[1:])
+        got = kernel(*call)
+        err, total = 0.0, 0.0
+        for i in range(0, n, chunk):
+            want = plain(args[0][i:i + chunk], *args[1:])
+            diff = (got[i:i + chunk].float() - want.float()).abs()
+            torch.testing.assert_close(got[i:i + chunk].float(), want.float(),
+                                       rtol=1.6e-2, atol=1e-2)
+            err, total = max(err, float(diff.max())), total + float(diff.sum())
+            del want, diff
+        mean_err = total / got.numel()
+        if mean_err >= 1e-3:
+            raise AssertionError(f"{name}: mean |kernel - plain| {mean_err} "
+                                 f"on {n} images of 577 tokens")
+        errs[n] = {"max_abs_err": err, "mean_abs_err": mean_err}
+        del got
+    split = attention_split(args, vit_kernels)
+    ms = cuda_ms(lambda: kernel(*args), 3)
+
+    def plain_all():
+        for i in range(0, args[0].shape[0], chunk):
+            plain(args[0][i:i + chunk], *args[1:])
+    plain_ms = cuda_ms(plain_all, 1)
+    composite = vit_composite(name, args)
+    composite()
+    library_ms = cuda_ms(composite, 3)
+    bound_ms, bound_by, gflop = vit_bound(name, args)
+    torch.cuda.empty_cache()
+    return {"name": name, "route": "cuda",
+            "source": "vilgod_tpu_torch/csrc/vit.cu",
+            "replaces": REPLACES[name],
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": {"x": list(args[0].shape), "heads": args[-1],
+                      "gflop": gflop, "errors_by_images": errs},
+            "by_part": split}
+
+
+def check_vit_long_path(ds, vit_kernels):
+    """The main path's nine stages (``run_sequences``, phase 3's scene and
+    caps) with the ViT-L/14@336px tower in bf16 (random weights from seed
+    0), chosen by the configuration's ``model_name``: kernel 5's launches
+    by core in that run alone. Every tower call takes the long core in each
+    of its 24 layers, none the one-pass core."""
+    import torch
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
+    from vilgod_tpu_torch.pipeline.runner import run_sequences
+
+    cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
+    cfg["preprocessor"]["clip"]["model_name"] = "ViT-L-14-336px.pt"
+    clip = ClipWrapper(cfg["preprocessor"]["clip"], dtype=torch.bfloat16,
+                       seed=0)
+    seen = {"calls": 0, "images": 0}
+    encode = clip.model.encode_image
+
+    def counted(x):
+        seen["calls"] += 1
+        seen["images"] += x.shape[0]
+        return encode(x)
+    clip.model.encode_image = counted
+    vit_kernels.reset_launches()
+    times = {}
+    t0 = time.perf_counter()
+    run_sequences(ds, cfg, clip_model=clip, stage_times=times, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layers = clip.model_cfg.vision_layers
+    launches = vit_kernels.LAUNCHES["fused_attention_proj"]
+    cores = dict(vit_kernels.CORE_LAUNCHES)
+    want = layers * seen["calls"]
+    if (seen["calls"] <= 0 or launches != want or cores["long"] != want
+            or cores["onepass"] != 0):
+        raise AssertionError(
+            f"ViT-L/14@336px on the main path: fused_attention_proj "
+            f"{launches}, cores {cores}, expected {want} long ({layers} "
+            f"layers x {seen['calls']} classify calls)")
+    return {"tower": "ViT-L-14-336px.pt", "image_size": clip.render_size(),
+            "classify_calls": seen["calls"], "images": seen["images"],
+            "launches": launches, "core_launches": cores, "wall_s": wall,
+            "classification_s": times.get("classification")}
+
+
 def check_vit_kernel(name, args, vit_kernels):
     """Kernel vs plain version on the main path's ``args``, on a ragged
-    batch of 3 images and, for the attention, on 16 images of 257 tokens;
-    kernel, plain, composite and bound times."""
+    batch of 3 images and, for the attention, on 16 images of 257 tokens
+    and on 16 of 577 at ViT-L/14@336px's width (1024, 16 heads); kernel,
+    plain, composite and bound times."""
     import torch
 
     kernel = getattr(vit_kernels, name).wrapped
@@ -1106,7 +1237,8 @@ def check_vit_kernel(name, args, vit_kernels):
     err, mean_err = 0.0, 0.0
     calls = [args, ragged(name, args)]
     if name == "fused_attention_proj":
-        calls.append(long_sequence(args))
+        calls += [long_sequence(args),
+                  vit_long_args(args[0].device, n_images=16)]
     for a in calls:
         got = kernel(*a)
         torch.cuda.synchronize()
@@ -2645,6 +2777,13 @@ def main() -> int:
             rows.append(row)
             log(f"kernel {name}: " + json.dumps(row))
             torch.cuda.empty_cache()
+        row = check_vit_long(vit_kernels)
+        long_path = check_vit_long_path(ds, vit_kernels)
+        log("main path with ViT-L/14@336px: " + json.dumps(long_path))
+        row["launches"] = long_path["launches"]
+        rows.append(row)
+        log("kernel fused_attention_proj at ViT-L/14@336px: "
+            + json.dumps(row))
         # the public ops no stage calls: one main-path frame against the
         # entropy window, and its 8 nearest neighbours in the next frame
         log("entropy_scores_window card vs CPU: " + json.dumps(

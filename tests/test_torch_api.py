@@ -47,9 +47,12 @@ def _np(x):
 
 
 # the port's utils also export resolve_device, its device rule; its
-# parallel its Mesh and local_devices, where the stages learn their devices
+# parallel its Mesh and local_devices, where the stages learn their devices;
+# its models the ViT-L/14@336px tower and the table of checkpoint names
 PORT_EXTRAS = {"utils": {"resolve_device"},
-               "parallel": {"Mesh", "local_devices"}}
+               "parallel": {"Mesh", "local_devices"},
+               "models": {"CHECKPOINTS", "clip_config_for",
+                          "clip_vit_l14_336"}}
 
 
 @pytest.mark.parametrize("package", ["data", "eval", "ops", "ground",

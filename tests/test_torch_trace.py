@@ -388,3 +388,47 @@ def test_run_sequences_records_builds_and_the_prefetch_wait():
     assert wait.sequence == "synth_1" and wait.parent is None
     seqs = [s.sequence for s in t.spans if s.name == "sequence"]
     assert seqs == ["synth_0", "synth_1"]
+
+
+def _tower_counts(model_cfg, n_items, n_calls=1):
+    """Counters of ``n_calls`` cluster-classifier calls of ``n_items``
+    items each, on a tiny bf16 tower, by span."""
+    from vilgod_tpu_torch.config import waymo_config
+    from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
+
+    clip = ClipWrapper(waymo_config()["preprocessor"]["clip"], device="cpu",
+                       model_cfg=model_cfg)
+    run = clip.make_cluster_classifier(num_clusters=4, capacity=8,
+                                       resolution=16, depth=4)
+    rng = np.random.default_rng(0)
+    xyz = torch.from_numpy(rng.normal(size=(1, 32, 3)).astype(np.float32))
+    tables = torch.arange(32, dtype=torch.int32).reshape(1, 4, 8)
+    masks = torch.ones((1, 4, 8), dtype=torch.bool)
+    fids = np.zeros(n_items, np.int32)
+    cids = np.arange(n_items, dtype=np.int32) % 4
+    trs = np.tile(np.eye(4, dtype=np.float32), (n_items, 1, 1))
+    with trace.recording() as t:
+        for _ in range(n_calls):
+            run(xyz, tables, masks, fids, cids, trs)
+    return t.counters_by_span()
+
+
+@pytest.mark.parametrize("image,patch,core", [(64, 16, "onepass"),
+                                              (336, 14, "long")])
+def test_tower_counts_its_images_and_attention_cores(image, patch, core):
+    """``classify.tower`` counts the images through the tower (four views
+    an item) and, on the CPU path's wrapper, one attention core a layer and
+    a call, by the kind the sequence's length takes on the card: 17 tokens
+    the one-pass core, 577 (ViT-L/14@336px's) the long one."""
+    from vilgod_tpu_torch.models import vit_kernels
+    from vilgod_tpu_torch.models.clip import CLIPConfig
+
+    cfg = CLIPConfig(image_size=image, patch_size=patch, vision_width=128,
+                     vision_layers=2, vision_heads=2, embed_dim=32,
+                     text_width=64, text_heads=1, text_layers=1,
+                     dtype=torch.bfloat16)
+    vit_kernels.reset_launches()
+    counts = _tower_counts(cfg, n_items=3, n_calls=2)
+    assert counts["classify.tower"] == {"tower_images": 2 * 3 * 4,
+                                        f"attn_core.{core}": 2 * 2}
+    assert vit_kernels.CORE_LAUNCHES == {"onepass": 0, "long": 0}

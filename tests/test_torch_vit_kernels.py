@@ -1,9 +1,10 @@
 """The plain PyTorch versions of the three ViT kernels
 (vilgod_tpu_torch/models/vit_kernels.py) against the JAX package's Pallas
 kernels run in interpret mode, at the shapes of tests/test_clip.py:
-attention (3, T, 256) with 4 heads at T = 197 and at the edge of the CUDA
+attention (3, T, 256) with 4 heads at T = 197, at the edge of the CUDA
 core's one-pass path (208, the longest it takes, and 209, the shortest of
-the two-pass path), MLPs (300, 256 -> 1024). In f32 they agree within
+the long core), at 321 (past the long core's old limit of 320) and at 577
+(ViT-L/14@336px), MLPs (300, 256 -> 1024). In f32 they agree within
 1e-4; in bf16 within the tolerance the kernels are held to on the card
 (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3): the same
 rounding points, products in another summation order. On the CPU the
@@ -61,10 +62,11 @@ def _compare(got, want, dt):
         assert np.abs(got - want).mean() < 1e-3
 
 
-# T = 197 keeps the ids it had before the boundary cases were added
+# T = 197 keeps the ids it had before the boundary cases were added; 321
+# lies past the long core's old limit of 320, 577 is ViT-L/14@336px's length
 @pytest.mark.parametrize("t,dt", [
     pytest.param(t, dt, id=dt if t == 197 else f"{t}-{dt}")
-    for t in (197, VT.ONE_PASS_TOKENS, VT.ONE_PASS_TOKENS + 1)
+    for t in (197, VT.ONE_PASS_TOKENS, VT.ONE_PASS_TOKENS + 1, 321, 577)
     for dt in ("f32", "bf16")])
 def test_attention_proj_plain_matches_pallas(t, dt):
     b, w, heads = 3, 256, 4

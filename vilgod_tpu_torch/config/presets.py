@@ -34,7 +34,9 @@ def default_pipeline() -> list:
         {
             "name": "classification",
             "args": {
-                "image_size": 224,
+                # None: the tower's own size (ClipWrapper.render_size); the
+                # JAX package states 224, ViT-B/16's
+                "image_size": None,
                 "key": "clip",
                 "aggregation": "voting",
                 "valid_only": True,

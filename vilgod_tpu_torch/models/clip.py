@@ -1,5 +1,8 @@
-"""CLIP ViT-B/16 in PyTorch, the zero-shot classifier backbone; the port
-of ``vilgod_tpu/models/clip.py``.
+"""CLIP in PyTorch, the zero-shot classifier backbone; the port of
+``vilgod_tpu/models/clip.py``. One module set runs every OpenAI ViT tower
+at its published sizes: ViT-B/16 (:func:`clip_vit_b16`, the default) and
+ViT-L/14@336px (:func:`clip_vit_l14_336`), chosen by checkpoint name through
+:data:`CHECKPOINTS` (:func:`clip_config_for`).
 
 The modules mirror the flax modules one for one and hold their weights
 in the flax layout (a dense ``kernel`` is (in, out), the patch embedding
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -46,7 +50,40 @@ class CLIPConfig:
 
 
 def clip_vit_b16(dtype=torch.float32) -> CLIPConfig:
+    """OpenAI CLIP ViT-B/16: 224 px, patch 16 (197 tokens), width 768, 12
+    layers of 12 heads; embedding 512; text width 512, 8 heads, 12
+    layers."""
     return CLIPConfig(dtype=dtype)
+
+
+def clip_vit_l14_336(dtype=torch.float32) -> CLIPConfig:
+    """OpenAI CLIP ViT-L/14@336px (openai/CLIP ``clip/model.py``
+    ``build_model`` on ``ViT-L-14-336px.pt``): 336 px, patch 14 (577
+    tokens), width 1024, 24 layers of 16 heads of 64, MLP 4096; embedding
+    768; text context 77, vocabulary 49408, width 768, 12 heads, 12
+    layers."""
+    return CLIPConfig(image_size=336, patch_size=14, vision_width=1024,
+                      vision_layers=24, vision_heads=16, embed_dim=768,
+                      context_length=77, vocab_size=49408, text_width=768,
+                      text_heads=12, text_layers=12, dtype=dtype)
+
+
+# OpenAI's checkpoint file names (openai/CLIP clip/clip.py ``_MODELS``) ->
+# the tower each holds
+CHECKPOINTS = {
+    "ViT-B-16.pt": clip_vit_b16,
+    "ViT-L-14-336px.pt": clip_vit_l14_336,
+}
+
+
+def clip_config_for(model_name: str, dtype=torch.float32) -> CLIPConfig:
+    """The tower of the OpenAI checkpoint ``model_name`` (a file name, or a
+    path ending in one) in ``dtype``."""
+    name = Path(model_name).name
+    if name not in CHECKPOINTS:
+        raise ValueError(f"no tower for checkpoint {model_name!r}; known: "
+                         f"{', '.join(sorted(CHECKPOINTS))}")
+    return CHECKPOINTS[name](dtype)
 
 
 def quick_gelu(x):
@@ -349,17 +386,19 @@ def normalize_images(images_rgb01: torch.Tensor) -> torch.Tensor:
 
 def convert_openai_checkpoint(path: str, cfg: CLIPConfig | None = None,
                               device=None) -> CLIPModel:
-    """An OpenAI CLIP ``ViT-B-16.pt`` (TorchScript archive or plain
-    state_dict) mapped onto the port's modules on ``device`` (``cuda``
-    unless given), through the flax tree's
-    names and layouts (``in_proj_weight.T`` -> ``qkv/kernel``, the conv
-    weight (O, I, kh, kw) -> (kh, kw, I, O))."""
+    """An OpenAI CLIP checkpoint (TorchScript archive or plain state_dict)
+    mapped onto the port's modules on ``device`` (``cuda`` unless given),
+    through the flax tree's names and layouts (``in_proj_weight.T`` ->
+    ``qkv/kernel``, the conv weight (O, I, kh, kw) -> (kh, kw, I, O)).
+    Without ``cfg`` the tower is the one that :data:`CHECKPOINTS` names for
+    the file's name (:func:`clip_config_for`), which then has to be one of
+    OpenAI's."""
+    cfg = cfg or clip_config_for(path)
     try:
         sd = torch.jit.load(path, map_location="cpu").state_dict()
     except RuntimeError:
         obj = torch.load(path, map_location="cpu", weights_only=False)
         sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
-    cfg = cfg or clip_vit_b16()
 
     def g(k):
         return sd[k].float().numpy()

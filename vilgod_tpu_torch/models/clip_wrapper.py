@@ -9,8 +9,11 @@ the gather of each cluster's points from the resident sequence buffers,
 the transform to the ego frame and the 4-view rendering; only the (B, V)
 class indices and scores leave the device.
 
-The tower runs in bfloat16 by default, its attention halves through the
-CUDA kernel of ``csrc/vit.cu`` on the card.
+The tower is the one that the checkpoint's file name, or else the
+configuration's ``model_name``, names (``clip.CHECKPOINTS``: ViT-B/16 or
+ViT-L/14@336px) unless a ``model_cfg`` is given; it runs in bfloat16 by default, its attention halves through the
+CUDA kernel of ``csrc/vit.cu`` on the card. Views are rendered at the
+tower's own image size.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from ..ops.rasterize import render_cluster_views
 from ..ops.transforms import apply_transform
 from ..utils import trace
 from ..utils.common import resolve_device
-from .clip import (clip_vit_b16, convert_openai_checkpoint, init_clip_params,
-                   normalize_images)
+from .clip import (clip_config_for, convert_openai_checkpoint,
+                   init_clip_params, normalize_images)
 from .tokenizer import ClipTokenizer, HashTokenizer
 
 
@@ -35,10 +38,16 @@ class ClipWrapper:
                  seed: int = 0, model_cfg=None, device=None, model=None):
         """``model``: an already built :class:`CLIPModel` (for example one
         carrying a JAX parameter tree, ``clip.params_from_jax``); otherwise
-        the checkpoint at ``checkpoint_path`` or seeded random weights."""
+        the checkpoint at ``checkpoint_path`` or seeded random weights.
+        ``model_cfg``: the tower; without it, the one that
+        ``checkpoint_path``'s file name names where a path is given, else
+        ``clip_cfg``'s ``model_name`` (ViT-B/16 where it names none), in
+        ``dtype``."""
         self.device = resolve_device(device)
         self.cfg = clip_cfg
-        self.model_cfg = model_cfg or clip_vit_b16(dtype=dtype)
+        self.model_cfg = model_cfg or clip_config_for(
+            checkpoint_path or clip_cfg.get("model_name", "ViT-B-16.pt"),
+            dtype)
         if model is not None:
             self.model = model.to(self.device)
         elif checkpoint_path and Path(checkpoint_path).exists():
@@ -88,6 +97,16 @@ class ClipWrapper:
         score, idx = torch.max(probs, dim=-1)
         return idx.to(torch.int32), score
 
+    def render_size(self, image_size: int | None = None) -> int:
+        """The side of the views the tower takes: its ``image_size``. A
+        stated size that differs raises (the tower's positional embedding
+        fits one size; views are not resized to it)."""
+        size = self.model_cfg.image_size
+        if image_size is not None and image_size != size:
+            raise ValueError(f"image_size {image_size} differs from the "
+                             f"tower's {size}: render at the tower's size")
+        return size
+
     def predict(self, images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """images (B, H, W) grey depth images in [0, 1] -> (class index
         (B,) into ``class_list``, score (B,))."""
@@ -99,12 +118,15 @@ class ClipWrapper:
                                 resolution: int = 112, depth: int = 8,
                                 obj_ratio: float = 0.8,
                                 depth_bias: float = 0.2,
-                                image_size: int = 224):
+                                image_size: int | None = None):
         """``run(ng_xyz, tables, table_masks, frame_ids, cluster_ids,
         transforms) -> (class index (B, V) int32, score (B, V) f32)`` on the
         device: gather each (frame, cluster) item's points, transform them
-        to the ego frame, render ``V`` views, classify every view. Items may
-        come from different frames, so one call fills a whole batch."""
+        to the ego frame, render ``V`` views at the tower's image size,
+        classify every view. Items may come from different frames, so one
+        call fills a whole batch. A stated ``image_size`` must be the
+        tower's."""
+        image_size = self.render_size(image_size)
 
         @torch.no_grad()
         def run(ng_xyz, tables, table_masks, frame_ids, cluster_ids,
@@ -130,6 +152,7 @@ class ClipWrapper:
                     image_size=image_size)                  # (B, V, S, S)
             b, v, s, _ = images.shape
             with trace.span("classify.tower", device=True):
+                trace.count("tower_images", b * v)
                 idx, score = self._classify_images(
                     images.reshape(b * v, s, s))
             return idx.reshape(b, v), score.reshape(b, v)

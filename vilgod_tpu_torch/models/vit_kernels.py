@@ -20,7 +20,11 @@ sm_90a. The plain versions round where the Pallas kernels round (bf16
 after the LayerNorm, after each bias, after quickGELU, after each head's
 ``w @ v``) and multiply the bf16 operands in f32 with TF32 off, so kernel
 and plain version differ only in summation order. ``LAUNCHES`` counts
-wrapper calls that launched their kernels.
+wrapper calls that launched their kernels, ``CORE_LAUNCHES`` the attention
+core's launches by core ("onepass" up to ``ONE_PASS_TOKENS``, "long" up to
+``MAX_TOKENS``). Inside a recording (``utils/trace``) each attention half
+also counts ``attn_core.onepass`` or ``attn_core.long``, on either path:
+on the CPU the core its length would take on the card.
 """
 from __future__ import annotations
 
@@ -30,10 +34,12 @@ import os
 
 import torch
 
+from ..utils import trace
 from ..utils.cuda_build import CudaLibrary, launch, stream_of
 
 KERNEL_NAMES = ("fused_attention_proj", "fused_mlp_block", "fused_mlp")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
+CORE_LAUNCHES = {"onepass": 0, "long": 0}
 LN_EPS = 1e-5
 HEAD_DIM = 64  # the CUDA attention core's head width
 
@@ -51,6 +57,8 @@ LIBRARY = CudaLibrary("vit.cu", {
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for kind in CORE_LAUNCHES:
+        CORE_LAUNCHES[kind] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +151,14 @@ def _check(name, device, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
-MAX_TOKENS = 320  # the attention core's longest sequence (vit.cu kMaxT)
+MAX_TOKENS = 592  # the attention core's longest sequence (vit.cu kMaxT)
 ONE_PASS_TOKENS = 208  # the one-pass core's longest (vit.cu kOnePassTiles)
 MAX_LN_WIDTH = 2048  # the LayerNorm pass holds a row in registers (kLnMaxVecs)
+
+
+def attention_core_kind(t: int) -> str:
+    """The core that takes ``t`` tokens: "onepass" or "long"."""
+    return "onepass" if t <= ONE_PASS_TOKENS else "long"
 
 
 def _check_dims(name, m, k, n):
@@ -184,12 +197,20 @@ def gemm_cuda(a, w, bias, res=None, gelu=False):
 
 def attention_core_cuda(qkv, b, t, heads):
     """softmax(q k^T / 8) v per (image, head) over qkv (B*T, 3W) bf16 ->
-    (B*T, W) (one launch, not counted): the one-pass core up to
-    ``ONE_PASS_TOKENS``, the two-pass core up to ``MAX_TOKENS``."""
+    (B*T, W) (one launch, counted in ``CORE_LAUNCHES``). The one-pass core
+    takes T <= ``ONE_PASS_TOKENS`` (ViT-B/16's 197: every logit of a warp's
+    16 rows in registers); the long core 208 < T <= ``MAX_TOKENS``
+    (ViT-L/14's 257, ViT-L/14@336px's 577) stages the head's K and V whole
+    (175,104 B at 577 tokens) and gives each 16-row query tile to two warps,
+    each holding the logits of its half of the keys, so the softmax stays
+    exact with one q . k. At 577 tokens the core's 1.36 GFLOP and 4.73 MB
+    an image (all heads) balance on the H100: 1.38 against 1.41 us at the
+    peaks."""
     width = heads * HEAD_DIM
     att = torch.empty((b * t, width), dtype=torch.bfloat16, device=qkv.device)
     launch(LIBRARY.load().vit_attention, qkv.data_ptr(), att.data_ptr(), b, t,
            width, heads, 1.0 / math.sqrt(HEAD_DIM), stream_of(qkv.device))
+    CORE_LAUNCHES[attention_core_kind(t)] += 1
     return att
 
 
@@ -202,6 +223,7 @@ def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     if w_qkv.shape != (width, 3 * width) or w_out.shape != (width, width):
         raise ValueError(f"{name}: weights {tuple(w_qkv.shape)}, "
                          f"{tuple(w_out.shape)} do not fit width {width}")
+    trace.count(f"attn_core.{attention_core_kind(t)}")
     if not x.is_cuda:
         return attention_proj_plain(x, ln_scale, ln_bias, w_qkv, b_qkv,
                                     w_out, b_out, heads)

@@ -2,11 +2,11 @@
 ``vilgod_tpu/pipeline/stages_classify.py``.
 
 Valid detections of every frame are batched together; each batch is
-gathered, rendered as 4-view depth images and classified by CLIP on the
-device, and the per-view classes and scores come down in ONE download at
-the end. A detection's class is the majority vote of its views. With
-local peers of the state's device, each batch splits over them
-(:func:`mesh_classifier`).
+gathered, rendered as 4-view depth images at the tower's image size and
+classified by CLIP on the device, and the per-view classes and scores come
+down in ONE download at the end. A detection's class is the majority vote
+of its views. With local peers of the state's device, each batch splits
+over them (:func:`mesh_classifier`).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def _vote(mapped_names: list[str], scores: np.ndarray) -> tuple[str, float]:
     return name, float(np.mean(scores[arr == name]))
 
 
-def _render_args(cfg, image_size: int) -> dict:
+def _render_args(cfg, image_size: int | None) -> dict:
     proj = cfg.get("preprocessor", {}).get("lidar_image_projection", {})
     return dict(resolution=proj.get("resolution", 112),
                 depth=proj.get("depth", 8),
@@ -114,12 +114,14 @@ def dump_depth_images(state: SequenceState, cfg, out_dir,
 
 
 def classification(state: SequenceState, cfg, clip_model=None,
-                   image_size: int = 224, aggregation: str = "voting",
+                   image_size: int | None = None, aggregation: str = "voting",
                    valid_only: bool = True, missing_only: bool = False,
                    image_out_dir=None, force: bool = False, **_):
     """Classify every valid detection (or every detection, or only the
     unclassified ones) with ``clip_model`` (a :class:`ClipWrapper`);
-    without one the stage does nothing (the geometry-only ablation)."""
+    without one the stage does nothing (the geometry-only ablation). Views
+    are rendered at the tower's image size; a stated ``image_size`` that
+    differs raises ``ValueError``."""
     if clip_model is None:
         return
     if state.done.get("classification") and not force and not missing_only:
@@ -199,5 +201,6 @@ def classification(state: SequenceState, cfg, clip_model=None,
                     state.det_cls[f, c] = MAPPED_CLASSES.index(name)
                     state.det_score[f, c] = score
     if image_out_dir:
-        dump_depth_images(state, cfg, image_out_dir, image_size=image_size)
+        dump_depth_images(state, cfg, image_out_dir,
+                          image_size=clip_model.render_size(image_size))
     state.done["classification"] = True

@@ -79,14 +79,18 @@ def build(scale: str):
 
 
 def clip_model_for(scale, cfg, device):
+    """The classifier of ``cfg``: at full scale the bf16 tower that its
+    ``clip.model_name`` names (``clip.CHECKPOINTS``), else the smoke
+    tower in f32; seeded random weights."""
     import torch
 
-    from ..models.clip import CLIPConfig
+    from ..models.clip import CLIPConfig, clip_config_for
     from ..models.clip_wrapper import ClipWrapper
-    model_cfg = (None if scale == "full"
+    clip_cfg = cfg["preprocessor"]["clip"]
+    model_cfg = (clip_config_for(clip_cfg["model_name"], torch.bfloat16)
+                 if scale == "full"
                  else CLIPConfig(**SMOKE_CLIP, dtype=torch.float32))
-    return ClipWrapper(cfg["preprocessor"]["clip"], dtype=torch.bfloat16,
-                       seed=0, model_cfg=model_cfg, device=device)
+    return ClipWrapper(clip_cfg, seed=0, model_cfg=model_cfg, device=device)
 
 
 def pregenerate(ds):

@@ -29,7 +29,7 @@ in its own process:
 
 For each it prints ptxas's registers and spill stores per kernel and checks
 the kernels against their plain versions on a ragged batch of 3 images and
-on 16 images of 257 tokens (the two-pass core; bf16 tolerance, as
+on 16 images of 257 tokens (the long core; bf16 tolerance, as
 ``chip_smoke.py``), then prints one JSON line: at x (2048, 197, 768) the
 LayerNorm pass, the qkv GEMM, the attention core and the output GEMM of
 ``fused_attention_proj`` (ms, TFLOP/s), and kernels 5, 10 and 11 (ms). The
