@@ -2,6 +2,11 @@
 against vilgod_tpu.ground.patchwork.segment_sequence on synthetic
 sequences: the ground masks must be equal, frame by frame, with the
 A-GLE/TGR state carried across frames."""
+import contextlib
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -192,3 +197,95 @@ def test_ring_sums_part_from_jax_off_the_lattice():
     assert 0 < len(differ) <= 8, len(differ)
     assert set(differ[:, 0]) <= {1, 2}
     np.testing.assert_array_equal(gj[0], gt[0])
+
+
+def _scan_inputs(seed=666):
+    """12 frames of 4096 slots: _chained_inputs' flat noisy ground and low
+    object, with 100 points a frame that RNR removes (intensity 0.1, 3 m
+    below the sensor within 7 m) and 400 in one patch, past its 256-slot
+    table."""
+    rng = np.random.default_rng(seed)
+    f, n = 16, 4096
+    pts = np.zeros((f, n, 4), np.float32)
+    for i in range(f):
+        g = rng.uniform(-30, 30, (3000, 2))
+        z = rng.normal(0.0, 0.05, 3000) - 1.7
+        obj = rng.uniform(-10, 10, (500, 3)) * [1, 1, 0.1]
+        pts[i, :3000, :2], pts[i, :3000, 2] = g, z
+        pts[i, 3000:3500, :3] = obj + [0, 0, 0.5]
+        pts[i, :, 3] = 0.5
+        pts[i, 3500:3600, :2] = rng.uniform(-5, 5, (100, 2))
+        pts[i, 3500:3600, 2], pts[i, 3500:3600, 3] = -3.0, 0.1
+        pts[i, 3600:4000, :2] = rng.uniform(4.0, 4.5, (400, 2))
+        pts[i, 3600:4000, 2] = rng.normal(0.0, 0.03, 400) - 1.7
+    mask = np.zeros((f, n), bool)
+    mask[:, :4000] = True
+    return pts[:12], mask[:12]
+
+
+def _digest(x: torch.Tensor) -> str:
+    a = np.ascontiguousarray(x.numpy())
+    return f"{a.dtype}{list(a.shape)}:" + hashlib.sha256(a.tobytes()).hexdigest()
+
+
+# what uploads a host value or waits for the device: none may run in a step
+_HOST_CALLS = [(torch, "tensor"), (torch, "from_numpy"), (torch.Tensor, "item"),
+               (torch.Tensor, "cpu"), (torch.Tensor, "tolist")]
+
+
+@contextlib.contextmanager
+def _host_calls_raise():
+    saved = [(owner, name, owner.__dict__.get(name)) for owner, name
+             in _HOST_CALLS]
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"{name} called inside a scan step")
+        return call
+    try:
+        for owner, name, _ in saved:
+            setattr(owner, name, refuse(name))
+        yield
+    finally:
+        for owner, name, value in saved:
+            if value is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, value)
+
+
+@pytest.mark.parametrize("tgr", [True, False], ids=["tgr", "no_tgr"])
+@pytest.mark.parametrize("rvpf", [True, False], ids=["rvpf", "no_rvpf"])
+@pytest.mark.parametrize("rnr", [True, False], ids=["rnr", "no_rnr"])
+@pytest.mark.parametrize("chains", [1, 3])
+def test_scan_step_is_capture_safe(monkeypatch, chains, rnr, rvpf, tgr):
+    """A CUDA graph can capture the scan's step only if it uploads nothing
+    and never waits for the device: with the step's constants built
+    first, the CPU scan runs with torch.tensor, torch.from_numpy and
+    Tensor.item / .cpu / .tolist raising inside every step, and its masks
+    and final state equal, bit for bit, the scan's before the constants
+    were hoisted (tests/fixtures/ground_scan_digests.json)."""
+    cfg = tpw.GroundConfig(patch_capacity=256, max_storage=64,
+                           enable_rnr=rnr, enable_rvpf=rvpf, enable_tgr=tgr)
+    pts, mask = _scan_inputs()
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    tpw._step_consts(cfg, p.device, chains)
+    presorted = tpw._presort_frames(p, m, cfg)
+    with _host_calls_raise(), pytest.raises(AssertionError):
+        torch.zeros(1).item()
+    step, steps = tpw._segment_presorted, []
+
+    def guarded(*args):
+        steps.append(args[0].shape[0])
+        with _host_calls_raise():
+            return step(*args)
+    monkeypatch.setattr(tpw, "_segment_presorted", guarded)
+    ground, state = tpw._scan_presorted(p, m, presorted, cfg, chains)
+    assert steps == [chains] * (12 // chains)
+    want = json.loads((Path(__file__).parent / "fixtures"
+                       / "ground_scan_digests.json").read_text())["cases"][
+        f"chains{chains}-rnr{int(rnr)}-rvpf{int(rvpf)}-tgr{int(tgr)}"]
+    assert int(ground.sum()) == want.pop("n_ground")
+    got = {"ground": _digest(ground),
+           **{k: _digest(v) for k, v in state._asdict().items()}}
+    assert got == want

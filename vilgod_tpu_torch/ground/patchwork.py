@@ -9,17 +9,26 @@ frame to frame. All patches run as one batch (the JAX package's vmap);
 the frame scan is a Python loop that carries the :class:`GroundState`,
 after one batched presort of every frame. The chained scan
 (:func:`segment_sequence_chained`) runs k chunks of frames side by side,
-each step one batch of k frames with k states.
+each step one batch of k frames with k states. On a CUDA device the step
+is captured once as a CUDA graph and replayed frame by frame
+(:class:`_StepGraph`): the same kernels in the same order, launched by one
+replay instead of some 300 calls from Python.
 
 Float sums over many terms (patch means and covariances, ring
 statistics) accumulate in float64 and round to float32 once: the result
-then does not depend on the summation order, so a CUDA run and a CPU run
-of the port give the same bits. Dot products of 3-vectors are written out
-in a fixed order for the same reason.
+then hardly depends on the summation order. Dot products of 3-vectors are
+written out in a fixed order for the same reason. A CUDA run and a CPU run
+of the port still differ in the patches' flatness (the smallest
+eigenvalue, from ``acos`` and ``cos``, whose last bits differ between the
+two), by up to ~1e-3 relative, and so in the flatness thresholds; on the
+tests' scenes their masks are equal.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -98,7 +107,7 @@ def init_ground_state(cfg: GroundConfig, device=None) -> GroundState:
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return GroundState(
-        sensor_height=torch.tensor(cfg.sensor_height, **f32),
+        sensor_height=torch.full((), cfg.sensor_height, **f32),
         elevation_thr=torch.zeros(r, **f32), flatness_thr=torch.zeros(r, **f32),
         elev_buf=torch.zeros((r, s), **f32), elev_cnt=torch.zeros(r, **i32),
         elev_ptr=torch.zeros(r, **i32),
@@ -150,37 +159,88 @@ def _num_patches(cfg: GroundConfig) -> int:
                    zip(cfg.num_rings_each_zone, cfg.num_sectors_each_zone)))
 
 
-def _point_patch_ids(xyz: torch.Tensor, cfg: GroundConfig) -> torch.Tensor:
-    """Per-point patch id, -1 for out-of-range points."""
+class _CZMTables(NamedTuple):
+    """The CZM's per-zone tables on a device (:func:`_czm_tables`)."""
+    boundaries: torch.Tensor      # (4,) f32, each zone's outer edge
+    min_ranges: torch.Tensor      # (4,) f32
+    ring_sizes: torch.Tensor      # (4,) f32
+    sector_sizes: torch.Tensor    # (4,) f32
+    num_rings: torch.Tensor       # (4,) int32
+    num_sectors: torch.Tensor     # (4,) int32
+    zone_offsets: torch.Tensor    # (4,) int32, each zone's first patch id
+
+
+@functools.lru_cache(maxsize=16)
+def _czm_tables(cfg: GroundConfig, device: torch.device) -> _CZMTables:
+    """:func:`_czm_geometry`'s zone tables, uploaded once per config and
+    device; callers only read them."""
     min_ranges, ring_sizes, sector_sizes, _, _ = _czm_geometry(cfg)
     nz = len(cfg.num_rings_each_zone)
     zone_offsets = np.concatenate(
         [[0], np.cumsum([r * s for r, s in zip(cfg.num_rings_each_zone,
                                                cfg.num_sectors_each_zone)])]
     )[:nz].astype(np.int32)
-    dev = xyz.device
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    return _CZMTables(
+        t(np.concatenate([min_ranges[1:], [cfg.max_range]]).astype(np.float32)),
+        t(min_ranges), t(ring_sizes), t(sector_sizes),
+        t(np.asarray(cfg.num_rings_each_zone, np.int32)),
+        t(np.asarray(cfg.num_sectors_each_zone, np.int32)), t(zone_offsets))
+
+
+class _StepConsts(NamedTuple):
+    """What one scan step reads besides its frames and state, for k chains
+    (patch arrays chain-major over k x patches): built once per config,
+    device and k (:func:`_step_consts`), so that the step makes no upload
+    and no host sync."""
+    patch_zone: torch.Tensor      # (k x patches,) int32
+    patch_conc: torch.Tensor      # (k x patches,) int32, concentric ring
+    chain_of_patch: torch.Tensor  # (k x patches,) int64
+    chain: torch.Tensor           # (k,) int64
+    patch_off: torch.Tensor       # (k, 1) int32, each chain's first patch
+    mult: torch.Tensor            # (R,) f32, A-GLE's elevation multipliers
+
+
+@functools.lru_cache(maxsize=16)
+def _step_consts(cfg: GroundConfig, device: torch.device, k: int
+                 ) -> _StepConsts:
+    """The step's constants on ``device``, cached; callers only read them."""
+    _, _, _, patch_zone_np, patch_conc_np = _czm_geometry(cfg)
+    num_patches = _num_patches(cfg)
+    chain = torch.arange(k, device=device)
+    mult = np.full(cfg.num_rings_of_interest, 2.0, np.float32)
+    mult[0] = 3.0
+    return _StepConsts(
+        patch_zone=torch.from_numpy(patch_zone_np).to(device).repeat(k),
+        patch_conc=torch.from_numpy(patch_conc_np).to(device).repeat(k),
+        chain_of_patch=chain.repeat_interleave(num_patches),
+        chain=chain,
+        patch_off=(chain.to(torch.int32) * num_patches)[:, None],
+        mult=torch.from_numpy(mult).to(device))
+
+
+def _point_patch_ids(xyz: torch.Tensor, cfg: GroundConfig) -> torch.Tensor:
+    """Per-point patch id, -1 for out-of-range points."""
+    czm = _czm_tables(cfg, xyz.device)
     x, y = xyz[:, 0], xyz[:, 1]
     r = torch.sqrt(x * x + y * y)
     theta = torch.atan2(y, x)
     theta = torch.where(theta > 0, theta, 2 * math.pi + theta)
 
-    boundaries = t(np.concatenate([min_ranges[1:], [cfg.max_range]])
-                   .astype(np.float32))
-    zone = (r[:, None] >= boundaries[None, :3]).sum(dim=1)  # 0..3
+    zone = (r[:, None] >= czm.boundaries[None, :3]).sum(dim=1)  # 0..3
 
-    min_r_z = t(min_ranges)[zone]
-    ring_sz = t(ring_sizes)[zone]
-    sec_sz = t(sector_sizes)[zone]
-    n_rings = t(np.asarray(cfg.num_rings_each_zone, np.int32))[zone]
-    n_secs = t(np.asarray(cfg.num_sectors_each_zone, np.int32))[zone]
+    min_r_z = czm.min_ranges[zone]
+    ring_sz = czm.ring_sizes[zone]
+    sec_sz = czm.sector_sizes[zone]
+    n_rings = czm.num_rings[zone]
+    n_secs = czm.num_sectors[zone]
 
     ring = torch.minimum(((r - min_r_z) / ring_sz).to(torch.int32), n_rings - 1)
     sec = torch.minimum((theta / sec_sz).to(torch.int32), n_secs - 1)
-    patch = t(zone_offsets)[zone] + ring * n_secs + sec
+    patch = czm.zone_offsets[zone] + ring * n_secs + sec
     in_range = (r > cfg.min_range) & (r <= cfg.max_range)
     return torch.where(in_range, patch, -1)
 
@@ -198,7 +258,8 @@ def _eigh3_smallest(a: torch.Tensor):
     """Closed-form symmetric 3x3 eigendecomposition of a (P, 3, 3) batch:
     eigenvalues ascending (P, 3) and the unit eigenvector of the smallest
     one (P, 3). Trigonometric method plus cross-product eigenvector;
-    degenerate spectra fall back to +z, as in the JAX package."""
+    degenerate spectra fall back to +z (the identity's last row), as in
+    the JAX package."""
     eye = torch.eye(3, dtype=a.dtype, device=a.device)
     trace = a[:, 0, 0] + a[:, 1, 1] + a[:, 2, 2]
     q = trace / 3.0
@@ -229,7 +290,7 @@ def _eigh3_smallest(a: torch.Tensor):
     pick = torch.argmax(norms, dim=1)
     v = cands[torch.arange(a.shape[0], device=a.device), pick]
     vn = torch.sqrt(_dot3(v, v))
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    up = eye[2]
     scale = torch.clamp(trace, min=1e-20)
     distinct = (e_mid - e_lo) > 1e-6 * scale
     ok = (p > 1e-12 * scale) & (vn > 1e-12) & distinct
@@ -342,27 +403,25 @@ def _presort_frames(points: torch.Tensor, mask: torch.Tensor,
 
 
 def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
-                       pid_geo, sorted_key, order, starts, xyz_sorted):
+                       pid_geo, sorted_key, order, starts, xyz_sorted,
+                       consts: _StepConsts):
     """State-dependent part of the segmentation of k presorted frames, one
     per chain: points (k, N, C), mask (k, N), ``state`` with a leading
     chain axis (``_stack_states``), the presort of :func:`_presort_frames`
-    for these k frames. The k frames' patches run as one batch of k x
-    patches. Returns (ground (k, N) bool, new_state, aux): aux holds the
-    per-patch ``patch_ground``, ``normals``, ``means`` and ``n_ground``
-    (k x patches, chain-major) and the per-point RNR ``noise`` (k, N)."""
+    for these k frames, and :func:`_step_consts` for k. The k frames'
+    patches run as one batch of k x patches. No upload, no host sync and
+    no data-dependent shape, so a CUDA graph can capture it. Returns
+    (ground (k, N) bool, new_state, aux): aux holds the per-patch
+    ``patch_ground``, ``normals``, ``means`` and ``n_ground`` (k x
+    patches, chain-major) and the per-point RNR ``noise`` (k, N)."""
     k, n = mask.shape
     dev = points.device
     num_patches = _num_patches(cfg)
     kp, kn = k * num_patches, k * n
     cap = cfg.patch_capacity
-    _, _, _, patch_zone_np, patch_conc_np = _czm_geometry(cfg)
-    patch_zone = torch.from_numpy(patch_zone_np).to(dev).repeat(k)
-    patch_conc = torch.from_numpy(patch_conc_np).to(dev).repeat(k)
-    chain_of_patch = torch.arange(k, device=dev).repeat_interleave(
-        num_patches)
-    pt_off = (torch.arange(k, device=dev) * n)[:, None]
-    patch_off = (torch.arange(k, device=dev, dtype=torch.int32)
-                 * num_patches)[:, None]
+    patch_zone, patch_conc = consts.patch_zone, consts.patch_conc
+    chain_of_patch, patch_off = consts.chain_of_patch, consts.patch_off
+    pt_off = (consts.chain * n)[:, None]
 
     xyz = points[..., :3]
     intensity = (points[..., 3] if points.shape[-1] > 3
@@ -496,7 +555,7 @@ def _segment_presorted(points, mask, state: GroundState, cfg: GroundConfig,
     ground = point_patch_ground | overflow_ground
 
     new_state = _update_state(state, store, elevation, flatness,
-                              conc_clamped, cfg)
+                              conc_clamped, cfg, consts.mult)
     aux = {"patch_ground": patch_ground, "normals": normals, "means": means,
            "n_ground": n_ground, "noise": noise}
     return ground, new_state, aux
@@ -520,7 +579,8 @@ def segment_ground(points: torch.Tensor, mask: torch.Tensor,
     ``points``; one step of :func:`segment_sequence`."""
     g, new_state, aux = _segment_presorted(
         points[None], mask[None], _stack_states([state]), cfg,
-        *_presort_frames(points[None], mask[None], cfg))
+        *_presort_frames(points[None], mask[None], cfg),
+        _step_consts(cfg, points.device, 1))
     return g[0], _chain_state(new_state, 0), {**aux, "noise": aux["noise"][0]}
 
 
@@ -539,10 +599,11 @@ def _ring_buffer_append(buf, cnt, ptr, values, sel, max_storage):
 
 
 def _update_state(state: GroundState, store, elevation, flatness, ring,
-                  cfg: GroundConfig) -> GroundState:
+                  cfg: GroundConfig, mult) -> GroundState:
     """A-GLE update of every chain: append each chain's stored patches to
     its per-ring histories and re-derive its adaptive thresholds and
-    sensor height. The patch arrays are (k x patches,), chain-major."""
+    sensor height. The patch arrays are (k x patches,), chain-major;
+    ``mult`` (R,): each ring's elevation multiplier of the std."""
     num_r, s = cfg.num_rings_of_interest, cfg.max_storage
     k = state.elev_buf.shape[0]
     store, elevation, flatness, ring = (
@@ -574,8 +635,6 @@ def _update_state(state: GroundState, store, elevation, flatness, ring,
     e_mean, e_std = stats(elev_buf, elev_cnt)
     f_mean, f_std = stats(flat_buf, flat_cnt)
 
-    mult = torch.tensor([3.0] + [2.0] * (num_r - 1), dtype=torch.float32,
-                        device=e_mean.device)
     return GroundState(
         sensor_height=torch.where(elev_cnt[:, 0] >= 2, -e_mean[:, 0],
                                   state.sensor_height),
@@ -602,23 +661,115 @@ def _scan(points: torch.Tensor, mask: torch.Tensor, cfg: GroundConfig,
 
 def _scan_presorted(points, mask, presorted, cfg: GroundConfig, chains: int):
     """The state-threaded part of :func:`_scan` over z-offset frames and
-    their presort: step t segments frame t of every chunk as one batch."""
+    their presort: step t segments frame t of every chunk as one batch,
+    eagerly on the CPU (:func:`_eager_steps`), as replays of the step's
+    CUDA graph on a CUDA device (:func:`_graph_steps`)."""
     f, n = mask.shape
     assert f % chains == 0, (f, chains)
     steps = f // chains
     pre = [x.reshape(chains, steps, *x.shape[1:])
            for x in (points, mask, *presorted)]
-    state = _stack_states([init_ground_state(cfg, device=points.device)]
-                          * chains)
     ground = torch.empty((chains, steps, n), dtype=torch.bool,
                          device=points.device)
+    consts = _step_consts(cfg, points.device, chains)
+    run = _graph_steps if points.device.type == "cuda" else _eager_steps
     with trace.span("ground.scan"):
-        for t in range(steps):
-            ground[:, t], state, _ = _segment_presorted(
-                *(x[:, t] for x in pre[:2]), state, cfg,
-                *(x[:, t] for x in pre[2:]))
+        state = run(pre, ground, cfg, consts)
         trace.count("steps", steps)
     return ground.reshape(f, n), state
+
+
+def _eager_steps(pre, ground, cfg: GroundConfig, consts: _StepConsts
+                 ) -> GroundState:
+    """The scan's steps as calls of :func:`_segment_presorted` from the
+    initial state: ``pre`` the (chains, steps, ...) frames and presort,
+    each step's mask written into ``ground`` (chains, steps, N). Returns
+    the chains' final states, stacked."""
+    state = _stack_states([init_ground_state(cfg, device=ground.device)]
+                          * ground.shape[0])
+    for t in range(ground.shape[1]):
+        ground[:, t], state, _ = _segment_presorted(
+            *(x[:, t] for x in pre[:2]), state, cfg,
+            *(x[:, t] for x in pre[2:]), consts)
+    return state
+
+
+class _StepGraph:
+    """One scan step, :func:`_segment_presorted` for k chains, captured as a
+    CUDA graph over static buffers: ``inputs`` (a frame's points, mask and
+    presort, copied in before each replay), ``state`` (the replay writes
+    the new state over the state it read) and ``ground`` (the step's (k, N)
+    mask, valid until the next replay). The capture runs on a side stream
+    after one eager step there (lazy initialisation stays out of the
+    graph), in thread-local mode: another thread's work on the card, such
+    as the runner's prefetch, neither fails the capture nor enters it."""
+
+    def __init__(self, frame, cfg: GroundConfig, consts: _StepConsts):
+        dev = frame[0].device
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                       for x in frame]
+        self.init = _stack_states([init_ground_state(cfg, device=dev)]
+                                  * frame[0].shape[0])
+        self.state = GroundState(*(x.clone() for x in self.init))
+        self.done = torch.cuda.Event()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _segment_presorted(*frame[:2], self.state, cfg, *frame[2:],
+                               consts)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.ground, new_state, _ = _segment_presorted(
+                *self.inputs[:2], self.state, cfg, *self.inputs[2:], consts)
+            for dst, src in zip(self.state, new_state):
+                dst.copy_(src)
+
+    def scan(self, pre, ground) -> GroundState:
+        """:func:`_eager_steps` by replays, on the current stream, from
+        the initial state; returns a copy of the final state."""
+        torch.cuda.current_stream().wait_event(self.done)
+        for dst, src in zip(self.state, self.init):
+            dst.copy_(src)
+        for t in range(ground.shape[1]):
+            for dst, x in zip(self.inputs, pre):
+                dst.copy_(x[:, t])
+            self.graph.replay()
+            ground[:, t] = self.ground
+        state = GroundState(*(x.clone() for x in self.state))
+        self.done.record()
+        return state
+
+
+_GRAPHS: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+_GRAPHS_KEPT = 4          # the most recently used step graphs kept
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _graph_steps(pre, ground, cfg: GroundConfig, consts: _StepConsts
+                 ) -> GroundState:
+    """:func:`_eager_steps` on a CUDA device: the step's graph, captured at
+    the first scan of its device, chains k, points N and width C and
+    config (not the frame count), then replayed once a step. Counts
+    ``graph_captures`` and ``graph_replays``. The graphs' buffers are
+    shared, so scans run one at a time (a lock, and each scan's stream
+    waits for the previous scan's last replay)."""
+    points = pre[0]
+    key = (ground.device, ground.shape[0], ground.shape[2], points.shape[-1],
+           points.dtype, cfg)
+    with _GRAPHS_LOCK, torch.cuda.device(ground.device):
+        step = _GRAPHS.pop(key, None)
+        captured = step is None
+        if captured:
+            step = _StepGraph([x[:, 0] for x in pre], cfg, consts)
+        _GRAPHS[key] = step
+        while len(_GRAPHS) > _GRAPHS_KEPT:
+            _GRAPHS.popitem(last=False)
+        state = step.scan(pre, ground)
+    trace.count("graph_captures", int(captured))
+    trace.count("graph_replays", ground.shape[1])
+    return state
 
 
 def segment_sequence(points: torch.Tensor, mask: torch.Tensor,
