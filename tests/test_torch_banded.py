@@ -97,6 +97,53 @@ def _windows(cid, tq, w_band, full):
     return np.array(s), w_band
 
 
+@pytest.mark.parametrize("w_band,need,kw,want_w,want_start,want_ends,reads", [
+    (4096, 4096, {}, 4096, 4096, True, 1),
+    (4096, 8192, {"middle": True}, 8192, 8192, True, 2),
+    (4096, 16384, {"middle": True}, 32768, 0, False, 2),
+    (16384, 32768, {"middle": True}, 32768, 0, False, 1),
+    (4096, 8192, {}, 32768, 0, False, 1),
+    (4096, 4096, {"also": True}, 32768, 0, False, 1),
+    (4096, 4096, {"also": False}, 4096, 4096, True, 1),
+    (65536, 10 ** 6, {}, 32768, 32768, True, 0),
+    (32768, 10 ** 6, {"covering_ends": False}, 32768, 32768, False, 0),
+], ids=["band", "middle", "middle_overflows", "middle_is_full", "full",
+        "also_set", "also_clear", "covering", "covering_no_ends"])
+def test_pass_window_decision(w_band, need, kw, want_w, want_start,
+                              want_ends, reads, monkeypatch):
+    """``pass_window``'s tiers over 32768 data ranks: the band, the 2x
+    middle tier, the full width (zero starts, no ends), ``also`` forcing
+    the full width, and a band spanning the data. A stand-in
+    ``block_windows`` overflows below ``need`` ranks and marks its starts
+    with the width asked; a spy on ``Tensor.__bool__`` counts the host
+    reads: one per tier tried, none for a band that spans the data."""
+    nb, tq = 8, 1024
+
+    def windows(cid_q, cid_d, tq_, w, invalid_cid):
+        starts = torch.full((nb,), w, dtype=torch.int32)
+        return starts, starts + 7, torch.tensor(w < need)
+
+    monkeypatch.setattr(tb, "block_windows", windows)
+    if "also" in kw:
+        kw = {"also": (torch.tensor(kw["also"]),)}
+    read, real = [], torch.Tensor.__bool__
+
+    def spy(t):
+        read.append(t.shape)
+        return real(t)
+
+    monkeypatch.setattr(torch.Tensor, "__bool__", spy)
+    starts, w, ends = tb.pass_window(torch.zeros(nb * tq, dtype=torch.int32),
+                                     torch.zeros(32768, dtype=torch.int32),
+                                     tq, w_band, **kw)
+    monkeypatch.undo()
+    assert (w, len(read)) == (want_w, reads)
+    assert starts.tolist() == [want_start] * nb
+    assert (ends is not None) == want_ends
+    if want_ends:
+        assert ends.tolist() == [want_start + 7] * nb
+
+
 @pytest.mark.parametrize("full", [False, True], ids=["banded", "full"])
 @pytest.mark.parametrize("ndim", [3, 6])
 def test_count_equal(ndim, full):

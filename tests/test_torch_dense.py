@@ -31,6 +31,7 @@ from vilgod_tpu.ops import pallas_kernels as JK
 from vilgod_tpu.pipeline.runner import ZeroShotDetector as JaxDetector
 from vilgod_tpu_torch.config import waymo_config
 from vilgod_tpu_torch.data import SyntheticDataset
+from vilgod_tpu_torch.ops import banded as TB
 from vilgod_tpu_torch.ops import cluster as TC
 from vilgod_tpu_torch.ops import dense_kernels as TK
 from vilgod_tpu_torch.ops import entropy as TE
@@ -209,7 +210,7 @@ def test_knn_labels_dense_equal(jax_dense):
     rng = np.random.default_rng(35)
     q, qm = _cloud(rng, 8192, spread=4.0)
     d, dm, labels, probs = _labelled(rng, 3000)
-    assert not TN._bandable(8192, 3000, float(np.sqrt(0.2)))
+    assert not TB.bandable(8192, 3000, float(np.sqrt(0.2)), 1024)
     got = _transfer_equal(q, qm, d, dm, labels, probs)
     assert (got >= 0).sum() > 1000
 
@@ -219,8 +220,6 @@ def test_knn_labels_band_overflow_takes_dense_knn(jax_dense, dense_calls,
     """An 8192-point cloud with more than its 4096-point band in one cell
     row: the banded pass overflows and both packages run the dense knn
     (the overflow branch of knn_labels)."""
-    from vilgod_tpu_torch.ops import banded as TB
-
     rng = np.random.default_rng(36)
     n = 8192
     d = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
@@ -234,15 +233,15 @@ def test_knn_labels_band_overflow_takes_dense_knn(jax_dense, dense_calls,
     labels = rng.integers(-1, 20, n).astype(np.int32)
     probs = rng.uniform(0.0, 1.0, n).astype(np.float32)
     overflowed = []
-    block_windows = TN.block_windows
+    block_windows = TB.block_windows
 
     def spy(*args, **kwargs):
         out = block_windows(*args, **kwargs)
         overflowed.append(bool(out[2]))
         return out
 
-    monkeypatch.setattr(TN, "block_windows", spy)
-    assert TN._bandable(n, n, float(np.sqrt(0.2)))
+    monkeypatch.setattr(TB, "block_windows", spy)
+    assert TB.bandable(n, n, float(np.sqrt(0.2)), 1024)
     assert TB.band_width(n) == 4096
     got = _transfer_equal(q, qm, d, dm, labels, probs)
     assert overflowed == [True] and dense_calls["tile_nearest"] == 1

@@ -6,8 +6,10 @@ of a query within ``r < CELL`` then lie within +-1 cell, which is a
 contiguous window of the sorted rank space. Each query block of ``tq``
 sorted points scans only its ``[start, start + w)`` window of the sorted
 data. When some block's true span exceeds the static band ``w``, the
-caller re-runs the SAME pass at full width (``starts = 0``,
-``w = w_full``): identical arithmetic, exhaustive window.
+SAME pass runs at full width (``starts = 0``, ``w = w_full``): identical
+arithmetic, exhaustive window. :func:`pass_window` makes that decision
+for every banded pass of ``ops/neighbors.py``, ``ops/cluster.py`` and
+``ops/entropy.py``.
 
 The four banded ops below hand the window math to the CUDA kernels of
 :mod:`.kernels` (plain PyTorch versions on CPU tensors). Without ``ends``
@@ -83,6 +85,47 @@ def sort_by_cell(points: torch.Tensor, mask: torch.Tensor,
     return order, cid[order]
 
 
+def paged_cell_sort(points, mask, pages, n_pages: int, origins=None):
+    """The paged cell-id sort (page * GRID**2 + cell, invalid points last
+    at n_pages * GRID**2) of ``dbscan_labels_paged`` and both clouds of
+    ``knn_labels_paged``: (order, cid_sorted).
+
+    ``origins`` (n_pages, 2): per-page grid origin (default: each page's
+    own corner)."""
+    page_span = GRID * GRID
+    assert n_pages * page_span < 2 ** 31, (
+        f"paged_cell_sort: {n_pages} pages x GRID^2 overflows int32 ids")
+    if origins is None:
+        origins = page_origins(points[:, :2], mask, pages, n_pages)
+    pages = pages.to(torch.int32)
+    cell = cell_ids(points[:, :2], mask, origin=origins[pages.long()])
+    cid = torch.where(mask, pages * page_span + cell, n_pages * page_span)
+    order = torch.argsort(cid, stable=True)
+    return order, cid[order]
+
+
+def bandable(nq: int, nd: int, radius, q_multiple: int) -> bool:
+    """The banded cell-sorted path applies: a radius below the cell side
+    and tile-multiple buffers (queries a multiple of ``q_multiple``)."""
+    return (isinstance(radius, (int, float)) and float(radius) < CELL
+            and nq >= 4096 and nd >= 4096
+            and nq % q_multiple == 0 and nd % 2048 == 0)
+
+
+def sort_pair(query, query_mask, data, data_mask):
+    """Cell-sort a query cloud and a data cloud on one shared grid origin
+    (their windows compare cell ids): ``(q_t8, order, cid_sorted)`` of
+    each, the ``prep_t8`` layout of the sorted xyz."""
+    og = torch.minimum(cell_origin(query[:, :2], query_mask),
+                       cell_origin(data[:, :2], data_mask))
+
+    def one(pts, msk):
+        order, cid = sort_by_cell(pts[:, :3], msk, origin=og)
+        return kernels.prep_t8(pts[order, :3], msk[order], 1), order, cid
+
+    return one(query, query_mask), one(data, data_mask)
+
+
 def block_windows(cid_q_sorted: torch.Tensor, cid_d_sorted: torch.Tensor,
                   tq: int, w_band: int, invalid_cid: int = _INVALID_CID):
     """Per query block of ``tq`` sorted points: the start of a
@@ -123,6 +166,51 @@ def band_width(n_data: int, tile: int = 2048, frac: int = 8,
 def full_width(n_data: int) -> int:
     """The full-pass window: every data rank, in whole TD tiles."""
     return -(-n_data // kernels.TD) * kernels.TD
+
+
+def page_band_width(n: int, n_pages: int) -> int:
+    """Static band of the paged passes: the capacity for one page's
+    cell-row structure (35% of a page, >= 8192), not the page length."""
+    return max(8192, -(-int(n // n_pages * 0.35) // kernels.TD) * kernels.TD)
+
+
+def pass_window(cid_q_sorted: torch.Tensor, cid_d_sorted: torch.Tensor,
+                tq: int, w_band: int, *, invalid_cid: int = _INVALID_CID,
+                middle: bool = False, also=(), covering_ends: bool = True):
+    """How wide one banded pass runs: (starts, width, ends) for the banded
+    ops below.
+
+    The band ``w_band`` (cut to :func:`full_width`) with each block's
+    span end from :func:`block_windows` when every span fits it; else,
+    with ``middle``, twice the band if that fits (one locally dense cell
+    row must not make every block pay the full width); else every data
+    rank: ``starts`` zeros, the full width and ``ends`` None. ``also``:
+    further 0-dim overflow flags (not with ``middle``), or-ed into the
+    band's flag on the device: any set forces the full width. A band
+    that already spans every data rank cannot overflow and is returned
+    unread, with the spans' ends, or with none where ``covering_ends`` is
+    False (the DBSCAN passes, as the JAX package runs them).
+
+    This is the only place where an overflow flag is read on the host:
+    one read per tier tried, none for a band that spans the data."""
+    assert not (middle and also), "pass_window: also with middle"
+    w_full = full_width(cid_d_sorted.shape[0])
+    w_band = min(w_band, w_full)
+    starts, ends, ovf = block_windows(cid_q_sorted, cid_d_sorted, tq, w_band,
+                                      invalid_cid=invalid_cid)
+    if w_band == w_full:
+        return starts, w_band, ends if covering_ends else None
+    for flag in also:
+        ovf = ovf | flag
+    if not bool(ovf):
+        return starts, w_band, ends
+    if middle and 2 * w_band < w_full:
+        starts2, ends2, ovf2 = block_windows(cid_q_sorted, cid_d_sorted, tq,
+                                             2 * w_band,
+                                             invalid_cid=invalid_cid)
+        if not bool(ovf2):
+            return starts2, 2 * w_band, ends2
+    return torch.zeros_like(starts), w_full, None
 
 
 def banded_scan(q_t8, d_t8, starts, tq: int, w_band: int, inner):

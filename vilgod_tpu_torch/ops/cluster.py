@@ -15,9 +15,11 @@ semantics and HDBSCAN's mutual-reachability linkage (see the JAX module):
    radius; clusters below ``min_cluster_size`` become noise (-1).
 
 Large tile-multiple inputs run banded kernels (``ops/kernels.py``) whose
-window overflow re-runs that pass alone at full width; small or
-non-tile-multiple inputs, and plain (non-adaptive) DBSCAN, run the dense
-all-pairs kernels (``ops/dense_kernels.py``) of :func:`_dbscan_full`.
+window overflow re-runs that pass alone at full width, as
+``ops/banded.pass_window``, the one owner of every banded pass's width,
+decides; small or non-tile-multiple inputs, and plain (non-adaptive)
+DBSCAN, run the dense all-pairs kernels (``ops/dense_kernels.py``) of
+:func:`_dbscan_full`.
 Also the per-cluster point table, cluster sizes and the compaction of
 root labels to dense cluster ids.
 """
@@ -28,7 +30,8 @@ import torch
 
 from .banded import (_INVALID_CID, GRID, band_width, banded_min_label,
                      banded_nearest, banded_radius_count3, block_windows,
-                     cell_ids, full_width, page_origins, sort_by_cell)
+                     page_band_width, paged_cell_sort, pass_window,
+                     sort_by_cell)
 from . import dense_kernels
 from .kernels import TD, TQ, TQ_HEAVY, prep_t8
 from .neighbors import PAGE_ISO
@@ -181,19 +184,12 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     core-radius levels [eps, eps*sqrt(f), eps*f]. Overflow is handled per
     pass: a pass whose windows overflow re-runs at full width."""
     n, ndim = points.shape
-    w_full = full_width(n)
-    w_band = min(band_width(n, tile=TD) if w_band is None else w_band,
-                 w_full)
+    w_band = band_width(n, tile=TD) if w_band is None else w_band
     tq_l, tq_h = min(TQ, n), min(TQ_HEAVY, n)
 
-    def window(cid_q, cid_d, tq):
-        """(starts, width, ends) of one pass: banded with each block's span
-        end, or full width (ends None) on overflow."""
-        starts, ends, ovf = block_windows(cid_q, cid_d, tq, w_band,
-                                          invalid_cid=invalid_cid)
-        if w_band == w_full or bool(ovf):
-            return torch.zeros_like(starts), w_full, None
-        return starts, w_band, ends
+    def window(cid_q, cid_d, tq, also=()):
+        return pass_window(cid_q, cid_d, tq, w_band, invalid_cid=invalid_cid,
+                           also=also, covering_ends=False)
 
     pts_t8 = prep_t8(points, mask, 1)
     s_h, w_h, e_h = window(cid_sorted, cid_sorted, tq_h)
@@ -243,11 +239,9 @@ def _dbscan_banded(points, mask, cid_sorted, levels, min_samples,
     # nearest-within-band is exact for border attachment: anything outside
     # the band is farther than eps_cap < CELL. The query blocks and the
     # compacted data both have to fit the band.
-    s_l, _, ovf_l = block_windows(cid_sorted, cid_sorted, tq_l, w_band,
-                                  invalid_cid=invalid_cid)
-    s_n, w_n, e_n = window(cid_sorted, cid_c, tq_l)
-    if w_n != w_full and bool(ovf_l):
-        s_n, w_n, e_n = torch.zeros_like(s_n), w_full, None
+    ovf_l = block_windows(cid_sorted, cid_sorted, tq_l, w_band,
+                          invalid_cid=invalid_cid)[2]
+    s_n, w_n, e_n = window(cid_sorted, cid_c, tq_l, also=(ovf_l,))
     nearest_d2, nc = banded_nearest(pts_t8, core_t8, s_n, tq_l, w_n,
                                     ndim=ndim, ends=e_n)
     nearest_d2 = nearest_d2[:n]
@@ -286,24 +280,6 @@ def dbscan_labels(points, mask, eps: float = 0.15, min_samples: int = 15,
     return labels, probs
 
 
-def paged_cell_sort(points, mask, pages, n_pages: int, origins=None):
-    """The paged cell-id sort shared by :func:`dbscan_labels_paged` and the
-    data side of ``knn_labels_paged``: (order, cid_sorted).
-
-    ``origins`` (n_pages, 2): per-page grid origin (default: each page's
-    own corner)."""
-    page_span = GRID * GRID
-    assert n_pages * page_span < 2 ** 31, (
-        f"paged_cell_sort: {n_pages} pages x GRID^2 overflows int32 ids")
-    if origins is None:
-        origins = page_origins(points[:, :2], mask, pages, n_pages)
-    pages = pages.to(torch.int32)
-    cell = cell_ids(points[:, :2], mask, origin=origins[pages.long()])
-    cid = torch.where(mask, pages * page_span + cell, n_pages * page_span)
-    order = torch.argsort(cid, stable=True)
-    return order, cid[order]
-
-
 def dbscan_labels_paged(points, mask, pages, n_pages: int, eps: float = 0.15,
                         min_samples: int = 15, min_cluster_size: int = 15,
                         propagation_rounds: int = 64,
@@ -328,12 +304,10 @@ def dbscan_labels_paged(points, mask, pages, n_pages: int, eps: float = 0.15,
     levels = torch.tensor(np.array(
         [eps, eps * (eps_cap_factor ** 0.5), eps * eps_cap_factor],
         np.float32), device=points.device)
-    # band sized for a page's cell-row structure, not the page length
-    per_page = n // n_pages
-    w_band = max(8192, -(-int(per_page * 0.35) // TD) * TD)
     labels_s, probs_s = _dbscan_banded(
         pts_iso[order], mask[order], cid_sorted, levels, min_samples,
-        min_cluster_size, propagation_rounds, w_band=w_band,
+        min_cluster_size, propagation_rounds,
+        w_band=page_band_width(n, n_pages),
         invalid_cid=n_pages * GRID * GRID)
     labels = torch.full((n,), -1, dtype=torch.int32, device=points.device)
     labels[order] = labels_s

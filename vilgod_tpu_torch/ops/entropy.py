@@ -1,13 +1,14 @@
 """Ephemerality / entropy motion scores (MODEST-style); the port of
 ``vilgod_tpu/ops/entropy.py``: the score from window counts, one frame's
 scores against a window (``entropy_scores_window``) and a whole
-sequence's (``entropy_sequence``)."""
+sequence's (``entropy_sequence``). The width of each banded pair count is
+``ops/banded.pass_window``'s decision, as for every banded pass."""
 from __future__ import annotations
 
 import torch
 
-from .banded import (CELL, band_width, banded_radius_count, block_windows,
-                     sort_by_cell)
+from .banded import (CELL, band_width, bandable, banded_radius_count,
+                     pass_window, sort_by_cell)
 from .kernels import TD, TQ, prep_t8
 from .neighbors import radius2_threshold, radius_count
 
@@ -98,10 +99,7 @@ def pair_counter(frames, masks, radius: float, max_neighbor_points: int,
     d_masks = masks if data_masks is None else data_masks
     n_d = d_frames.shape[1]
 
-    bandable = (isinstance(radius, (int, float)) and float(radius) < CELL
-                and n >= 4096 and n % 2048 == 0
-                and n_d >= 4096 and n_d % 2048 == 0)
-    if not bandable:
+    if not bandable(n, n_d, radius, 2048):
         def pair_counts(fnr, wf):
             return radius_count(frames[fnr], masks[fnr], d_frames[wf],
                                 d_masks[wf], radius,
@@ -132,13 +130,8 @@ def pair_counter(frames, masks, radius: float, max_neighbor_points: int,
     def pair_counts(fnr, wf):
         q_t8, cq, order = sorted_q[fnr]
         d_t8, cd, _ = sorted_d[wf]
-        starts, ends, ovf = block_windows(cq, cd, tq, w_band)
-        w_pass = w_band
-        if w_band != n_d and bool(ovf):
-            # overflow: the SAME banded pass at full width
-            starts, ends, w_pass = torch.zeros_like(starts), None, n_d
-        c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w_pass,
-                                ends=ends)[:n]
+        starts, w, ends = pass_window(cq, cd, tq, w_band)
+        c = banded_radius_count(q_t8, d_t8, starts, r2, tq, w, ends=ends)[:n]
         c_un = torch.zeros(n, dtype=torch.int32, device=frames.device)
         c_un[order] = c
         return torch.clamp(torch.where(masks[fnr], c_un, 0),

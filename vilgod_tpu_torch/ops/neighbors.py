@@ -2,8 +2,9 @@
 the port of ``vilgod_tpu/ops/neighbors.py``.
 
 Large tile-multiple clouds with a radius below the cell side take the
-banded passes (``ops/banded.py``); the rest take the dense all-pairs
-kernels of ``ops/dense_kernels.py`` (the JAX package's Pallas branches of
+banded passes (``ops/banded.py``, whose ``pass_window`` alone decides how
+wide each runs); the rest take the dense all-pairs kernels of
+``ops/dense_kernels.py`` (the JAX package's Pallas branches of
 ``_radius_count_dense`` and ``knn``), as does the label transfer when a
 band overflows.
 """
@@ -12,9 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .banded import (CELL, GRID, band_width, banded_nearest,
-                     banded_radius_count, block_windows, cell_ids,
-                     cell_origin, full_width, page_origins, sort_by_cell)
+from .banded import (GRID, band_width, bandable, banded_nearest,
+                     banded_radius_count, page_band_width, page_origins,
+                     paged_cell_sort, pass_window, sort_pair)
 from . import dense_kernels
 from .kernels import TD, TQ, prep_t8
 
@@ -37,34 +38,17 @@ def _dist_threshold(dist_threshold: float) -> float:
     return float(np.float32(np.float64(dist_threshold) + 1.25e-5))
 
 
-def _bandable(nq: int, nd: int, radius) -> bool:
-    """The banded cell-sorted path applies (radius below the cell side,
-    tile-multiple buffers)."""
-    return (isinstance(radius, (int, float)) and float(radius) < CELL
-            and nq >= 4096 and nd >= 4096
-            and nq % 1024 == 0 and nd % 2048 == 0)
-
-
 def _radius_count_banded(query, query_mask, data, data_mask, radius,
                          max_count):
     """Cell-sorted banded radius count; on window overflow the SAME pass
     runs at full width (identical arithmetic)."""
     nq, nd = query.shape[0], data.shape[0]
-    # cross-cloud windows compare cell ids -> both grids share an origin
-    og = torch.minimum(cell_origin(query[:, :2], query_mask),
-                       cell_origin(data[:, :2], data_mask))
-    oq, cq = sort_by_cell(query[:, :3], query_mask, origin=og)
-    od, cd = sort_by_cell(data[:, :3], data_mask, origin=og)
-    q_t8 = prep_t8(query[oq, :3], query_mask[oq], 1)
-    d_t8 = prep_t8(data[od, :3], data_mask[od], 1)
+    (q_t8, oq, cq), (d_t8, _, cd) = sort_pair(query, query_mask, data,
+                                              data_mask)
     tq = min(TQ, nq)
-    w_band = band_width(nd, tile=TD)
-    starts, ends, ovf = block_windows(cq, cd, tq, w_band)
-    w_full = full_width(nd)
-    if w_full != w_band and bool(ovf):
-        starts, ends, w_band = torch.zeros_like(starts), None, w_full
+    starts, w, ends = pass_window(cq, cd, tq, band_width(nd, tile=TD))
     c = banded_radius_count(q_t8, d_t8, starts, radius2_threshold(radius),
-                            tq, w_band, ends=ends)
+                            tq, w, ends=ends)
     out = torch.zeros(nq, dtype=torch.int32, device=query.device)
     out[oq] = c[:nq]
     return torch.clamp(torch.where(query_mask, out, 0), max=max_count)
@@ -74,7 +58,7 @@ def radius_count(query, query_mask, data, data_mask, radius: float,
                  max_count: int = 1000) -> torch.Tensor:
     """Count data points within ``radius`` of each query (int32 (Q,)),
     clipped at ``max_count``; invalid queries count 0."""
-    if _bandable(query.shape[0], data.shape[0], radius):
+    if bandable(query.shape[0], data.shape[0], radius, 1024):
         return _radius_count_banded(query, query_mask, data, data_mask,
                                     radius, max_count)
     return _radius_count_dense(query, query_mask, data, data_mask, radius,
@@ -192,23 +176,17 @@ def knn_labels(query, query_mask, data, data_mask, labels,
         return _transfer(labels, probabilities, dists[:, 0], idx[:, 0].long(),
                          query_mask, dist_threshold)
 
-    if not _bandable(nq, nd, float(np.sqrt(dist_threshold))):
+    if not bandable(nq, nd, float(np.sqrt(dist_threshold)), 1024):
         return dense()
-    og = torch.minimum(cell_origin(query[:, :2], query_mask),
-                       cell_origin(data[:, :2], data_mask))
-    oq, cq = sort_by_cell(query[:, :3], query_mask, origin=og)
-    od, cd = sort_by_cell(data[:, :3], data_mask, origin=og)
-    q_t8 = prep_t8(query[oq, :3], query_mask[oq], 1)
-    d_t8 = prep_t8(data[od, :3], data_mask[od], 1)
+    (q_t8, oq, cq), (d_t8, od, cd) = sort_pair(query, query_mask, data,
+                                               data_mask)
     tq = min(TQ, nq)
-    w_band = band_width(nd, tile=TD)
-    starts, ends, ovf = block_windows(cq, cd, tq, w_band)
-    if bool(ovf):
+    starts, w, ends = pass_window(cq, cd, tq, band_width(nd, tile=TD))
+    if ends is None:
         # a window wider than the band: the dense knn over the original
-        # orders, as the JAX package does (a band as wide as the data
-        # never overflows)
+        # orders, as the JAX package does
         return dense()
-    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band, ends=ends)
+    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w, ends=ends)
     bd, bi = bd[:nq], torch.clamp(bi[:nq], max=nd - 1)
     # query rank -> original query row, data rank -> original data row
     d2 = torch.zeros(nq, dtype=torch.float32, device=query.device)
@@ -236,12 +214,6 @@ def knn_labels_paged(query, query_mask, q_pages, data, data_mask, d_pages,
     assert nq % TQ == 0 and nd % TD == 0, (
         f"knn_labels_paged: flattened sizes (nq={nq}, nd={nd}) must be "
         f"multiples of (TQ={TQ}, TD={TD}); pad the page capacity")
-    page_span = GRID * GRID
-    # paged cell ids are int32: the invalid id n_pages * GRID**2 must fit
-    # (the check paged_cell_sort makes, which the JAX version of this
-    # function lacks)
-    assert n_pages * page_span < 2 ** 31, (
-        f"knn_labels_paged: {n_pages} pages x GRID^2 overflows int32 ids")
     if origins is None:
         assert d_presorted is None, (
             "knn_labels_paged: a presorted data cloud requires the origins "
@@ -249,25 +221,11 @@ def knn_labels_paged(query, query_mask, q_pages, data, data_mask, d_pages,
         origins = torch.minimum(
             page_origins(query[:, :2], query_mask, q_pages, n_pages),
             page_origins(data[:, :2], data_mask, d_pages, n_pages))
-    invalid = n_pages * page_span
-    q_pages = q_pages.to(torch.int32)
-    cq = torch.where(query_mask,
-                     q_pages * page_span + cell_ids(
-                         query[:, :2], query_mask,
-                         origin=origins[q_pages.long()]),
-                     invalid)
-    oq = torch.argsort(cq, stable=True)
-    if d_presorted is None:
-        d_pages = d_pages.to(torch.int32)
-        cd = torch.where(data_mask,
-                         d_pages * page_span + cell_ids(
-                             data[:, :2], data_mask,
-                             origin=origins[d_pages.long()]),
-                         invalid)
-        od = torch.argsort(cd, stable=True)
-        cd_sorted = cd[od]
-    else:
-        od, cd_sorted = d_presorted
+    oq, cq_sorted = paged_cell_sort(query, query_mask, q_pages, n_pages,
+                                    origins=origins)
+    od, cd_sorted = (paged_cell_sort(data, data_mask, d_pages, n_pages,
+                                     origins=origins)
+                     if d_presorted is None else d_presorted)
     q4 = torch.cat([query[:, :3],
                     (q_pages.to(query.dtype) * PAGE_ISO)[:, None]], 1)
     d4 = torch.cat([data[:, :3],
@@ -275,29 +233,11 @@ def knn_labels_paged(query, query_mask, q_pages, data, data_mask, d_pages,
     q_t8 = prep_t8(q4[oq], query_mask[oq], 1)
     d_t8 = prep_t8(d4[od], data_mask[od], 1)
     tq = min(TQ, nq)
-    # static band = capacity for one page's cell-row structure
-    per_page = nd // n_pages
-    w_band = max(8192, -(-int(per_page * 0.35) // TD) * TD)
-    w_full = full_width(nd)
-    w_band = min(w_band, w_full)
-    cq_sorted = cq[oq]
-    starts, ends, ovf = block_windows(cq_sorted, cd_sorted, tq, w_band,
-                                      invalid_cid=invalid)
-    w2 = min(2 * w_band, w_full)
-    if w_full != w_band and bool(ovf):
-        if w2 == w_full:
-            starts, w_band, ends = torch.zeros_like(starts), w_full, None
-        else:
-            # middle tier at 2x band before the quadratic full pass: one
-            # locally dense cell row must not make every page pay O(nq*nd)
-            starts2, ends2, ovf2 = block_windows(cq_sorted, cd_sorted, tq, w2,
-                                                 invalid_cid=invalid)
-            if bool(ovf2):
-                starts, w_band, ends = torch.zeros_like(starts), w_full, None
-            else:
-                starts, w_band, ends = starts2, w2, ends2
-    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w_band, ndim=4,
-                            ends=ends)
+    starts, w, ends = pass_window(cq_sorted, cd_sorted, tq,
+                                  page_band_width(nd, n_pages),
+                                  invalid_cid=n_pages * GRID * GRID,
+                                  middle=True)
+    bd, bi = banded_nearest(q_t8, d_t8, starts, tq, w, ndim=4, ends=ends)
     bd, bi = bd[:nq], torch.clamp(bi[:nq], max=nd - 1)
     d2 = torch.full((nq,), float("inf"), dtype=torch.float32,
                     device=query.device)

@@ -48,11 +48,9 @@ CHUNK_KW = dict(n_frames_window=2, eps=0.15, min_samples=MIN_SAMPLES,
 def band_for(n: int, chunk: int) -> int:
     """The paged DBSCAN's static band width for ``n`` points in ``chunk``
     pages (``ops/cluster.dbscan_labels_paged``), cut to the full width."""
-    from ..ops.banded import full_width
-    from ..ops.kernels import TD
+    from ..ops.banded import full_width, page_band_width
 
-    w = max(8192, -(-int(n // chunk * 0.35) // TD) * TD)
-    return min(w, full_width(n))
+    return min(page_band_width(n, chunk), full_width(n))
 
 
 def dissect(dev_args, stats, f0: int, chunk: int, cap_in: int,

@@ -159,8 +159,8 @@ def _paged_passes(feats, fmask, pages, chunk, presorted, eps, min_samples):
     from ..ops import cluster as cl
     from ..ops.banded import (GRID, banded_min_label, banded_nearest,
                               banded_radius_count3, block_windows,
-                              full_width)
-    from ..ops.kernels import TD, TQ, TQ_HEAVY, prep_t8
+                              page_band_width, pass_window)
+    from ..ops.kernels import TQ, TQ_HEAVY, prep_t8
     from ..ops.neighbors import PAGE_ISO
 
     n = feats.shape[0]
@@ -171,16 +171,12 @@ def _paged_passes(feats, fmask, pages, chunk, presorted, eps, min_samples):
     ndim, invalid = points.shape[1], chunk * GRID * GRID
     levels = torch.tensor(np.array([eps, eps * 2 ** 0.5, eps * 2.0],
                                    np.float32), device=feats.device)
-    w_full = full_width(n)
-    w_band = min(max(8192, -(-int(n // chunk * 0.35) // TD) * TD), w_full)
+    w_band = page_band_width(n, chunk)
     tq_l, tq_h = min(TQ, n), min(TQ_HEAVY, n)
 
-    def window(cid_q, cid_d, tq):
-        starts, ends, ovf = block_windows(cid_q, cid_d, tq, w_band,
-                                          invalid_cid=invalid)
-        if w_band == w_full or bool(ovf):
-            return torch.zeros_like(starts), w_full, None
-        return starts, w_band, ends
+    def window(cid_q, cid_d, tq, also=()):
+        return pass_window(cid_q, cid_d, tq, w_band, invalid_cid=invalid,
+                           also=also, covering_ends=False)
 
     pts_t8 = prep_t8(points, mask, 1)
     s_h, w_h, e_h = window(cid_sorted, cid_sorted, tq_h)
@@ -217,10 +213,9 @@ def _paged_passes(feats, fmask, pages, chunk, presorted, eps, min_samples):
         cl._propagate(labels0, radius_min, valid_c, n, 64)
         return calls[0] - 1        # the first min-label pass seeds round 1
 
-    s_n, w_n, e_n = window(cid_sorted, cid_c, tq_l)
-    if w_n != w_full and bool(block_windows(cid_sorted, cid_sorted, tq_l,
-                                            w_band, invalid_cid=invalid)[2]):
-        s_n, w_n, e_n = torch.zeros_like(s_n), w_full, None
+    ovf_l = block_windows(cid_sorted, cid_sorted, tq_l, w_band,
+                          invalid_cid=invalid)[2]
+    s_n, w_n, e_n = window(cid_sorted, cid_c, tq_l, also=(ovf_l,))
 
     def nearest():
         return banded_nearest(pts_t8, core_t8, s_n, tq_l, w_n, ndim=ndim,
