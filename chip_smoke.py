@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit; build the CUDA sources of
-   vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu, ransac.cu) with
+   vilgod_tpu_torch/csrc/ (banded.cu, vit.cu, dense.cu, ransac.cu, select.cu) with
    nvcc for sm_90a, one nvcc each, started together (timed); ptxas's registers,
    spill stores and static shared memory per kernel of each source, with
    kernel 8's pair loop at ndim 5 held to at least ``K8_MIN_REGISTERS``; per
@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    seconds printed. Launch counts are zeroed just before and read just
    after; every kernel of the path must have launched,
    ``fused_attention_proj`` once per vision layer and classify call,
-   ``ransac_gumbel_top3`` twice a frame (the filter's two RANSAC stages). Then
+   ``ransac_gumbel_top3`` twice a frame (the filter's two RANSAC stages),
+   ``select_keep`` once a clustering chunk. Then
    the opt-in MLP kernels: one classify batch of this run through the tower
    with ``VILGOD_FUSED_MLP_BLOCK=1`` and with ``VILGOD_FUSED_MLP=1``; each
    must launch. Then the nine stages once more under ``torch.profiler``:
@@ -179,7 +180,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version on the card at both benchmark cells' shapes
    (``scenes.RANSAC_SHAPES``: stage 1 over a raw frame's valid points,
    stage 2 over stage 1's inliers, every row equal), at a ragged count,
-   with two valid points and with one row, timed beside its bound;
+   with two valid points and with one row, timed beside its bound; then
+   the clustering's input selection (``select_keep``, kernel 14, no Pallas
+   counterpart) against its plain version on the card at both benchmark
+   cells' shapes (``scenes.SELECT_SHAPES``: every chunk of a sequence's
+   32 pages of two window frames, each keep mask equal), at a ragged
+   count with one to nine window frames, timed beside its bound;
 5. card against CPU, second half: the same 4 frames by the port on the CPU
    (the plain versions): ground mask, labels, det_n, det_static and
    det_valid equal, det_center within 1e-4 m, plane_ref within 1e-4, every
@@ -223,6 +229,9 @@ PEAK_CVT64 = 132 * 16 * 1.98e9
 # csrc/ransac.cu per drawn number of a valid point (its note)
 RANSAC_INT_OPS = 90
 RANSAC_CVT64 = 42
+# csrc/select.cu per drawn number, and its bytes a point (its note)
+SELECT_INT_OPS = 81
+SELECT_BYTES = 5
 
 GEOMETRY = STAGES[:4]
 # phase 3c: the run tool's overrides (its synthetic scene, 8 frames)
@@ -2337,6 +2346,64 @@ def check_ransac_draw(ransac_kernels, reps=20, iters=100):
     return rows
 
 
+def check_select_keep(select_kernels, reps=20):
+    """Phase 4: the clustering's input selection (kernel 14) against its
+    plain version on the card, at both benchmark cells' shapes: every
+    chunk of a sequence (32 pages of two window frames, the last anchored
+    at the bucket's end), each keep mask equal; then 4097 points over 40
+    frames with one to nine window frames (nine: 288 keys, two launches).
+    Per cell shape, the kernel's and the plain version's ms a chunk (CUDA
+    events over ``reps`` calls) and the kernel's bound: the larger of its
+    integer ops per drawn number (the points whose rule reads the draw)
+    over the card's rate and its 5 bytes a point over HBM's. Returns one
+    row per cell shape."""
+    from vilgod_tpu_torch.pipeline.stages_geometry import (CHUNK_PAGES,
+                                                           chunk_starts)
+    from vilgod_tpu_torch.tools.scenes import SELECT_SHAPES, select_masks
+
+    sk = select_kernels
+
+    def same(masks, f0, chunk, nfw, f_real):
+        keys = sk.page_keys(3, f0, chunk, nfw)
+        a = sk.select_keep(keys, *masks, f0, nfw, f_real)
+        b = sk.keep_plain(keys, *masks, f0, nfw, f_real)
+        bad = int((a != b).any(dim=1).sum())
+        if bad:
+            raise AssertionError(f"select_keep: {bad} of {chunk} pages differ "
+                                 f"from the plain version (f0 {f0}, nfw "
+                                 f"{nfw}, n {masks[0].shape[1]})")
+        return chunk
+
+    rows = []
+    for cell, (f_pad, f_real, n) in SELECT_SHAPES.items():
+        masks = [m.to("cuda") for m in select_masks(f_pad, n, seed=n)]
+        starts = chunk_starts(f_pad, CHUNK_PAGES)
+        pages = sum(same(masks, f0, CHUNK_PAGES, 2, f_real) for f0 in starts)
+        keys = sk.page_keys(3, 0, CHUNK_PAGES, 2)
+        frames, valid = sk.window_frames(0, CHUNK_PAGES, 2, f_real, f_pad,
+                                         "cuda")[1:]
+        mask, has_nbr, _, moving = masks
+        drawn = int((mask[frames] & valid[..., None] & has_nbr[frames]
+                     & ~moving[frames]).sum())
+        points = CHUNK_PAGES * 2 * n
+        row = {"kernel": "select_keep", "cell": cell,
+               "shape": [CHUNK_PAGES, 2, n], "chunks_equal": len(starts),
+               "pages_equal": pages, "drawn": drawn,
+               "ms": cuda_ms(lambda: sk.select_keep(keys, *masks, 0, 2,
+                                                    f_real), reps),
+               "plain_ms": cuda_ms(lambda: sk.keep_plain(keys, *masks, 0, 2,
+                                                         f_real), 3),
+               "bound_ms": 1e3 * max(drawn * SELECT_INT_OPS / PEAK_INT32_OPS,
+                                     points * SELECT_BYTES / PEAK_HBM_BYTES)}
+        rows.append(row)
+        del masks
+    ragged = [m.to("cuda") for m in select_masks(40, 4097, seed=1)]
+    edge = sum(same(ragged, 8, 32, nfw, 37) for nfw in (1, 2, 3, 9))
+    for row in rows:
+        row["edge_pages_equal"] = edge
+    return rows
+
+
 def check_knn_k(q, qm, d, dm, k=8):
     """Phase 4: ``knn`` with k > 1 (plain torch: difference-form squared
     distances, packed-key top-k) on the card and on the CPU: equal
@@ -2472,10 +2539,13 @@ def main() -> int:
     from vilgod_tpu_torch.data import SyntheticDataset
     from vilgod_tpu_torch.models import vit_kernels
     from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
-    from vilgod_tpu_torch.ops import dense_kernels, kernels, ransac_kernels
+    from vilgod_tpu_torch.ops import (dense_kernels, kernels, ransac_kernels,
+                                      select_kernels)
     from vilgod_tpu_torch.pipeline.runner import (ZeroShotDetector,
                                                   run_sequences)
-    from vilgod_tpu_torch.pipeline.stages_geometry import frame_bucket
+    from vilgod_tpu_torch.pipeline.stages_geometry import (CHUNK_PAGES,
+                                                           chunk_starts,
+                                                           frame_bucket)
     from vilgod_tpu_torch.pipeline.state import (CLS_NONE, Capacity,
                                                  SequenceState)
     from vilgod_tpu_torch.utils.cuda_build import build_all
@@ -2489,7 +2559,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     libraries = [kernels.LIBRARY, vit_kernels.LIBRARY, dense_kernels.LIBRARY,
-                 ransac_kernels.LIBRARY]
+                 ransac_kernels.LIBRARY, select_kernels.LIBRARY]
     paths = build_all(libraries)
     for lib in libraries:
         lib.load()
@@ -2538,7 +2608,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         times = {}
         cache = work / "main"
-        for mod in (kernels, vit_kernels, dense_kernels, ransac_kernels):
+        for mod in (kernels, vit_kernels, dense_kernels, ransac_kernels,
+                    select_kernels):
             mod.reset_launches()
         recorder.active = vit_rec.active = True
         t0 = time.perf_counter()
@@ -2549,7 +2620,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         recorder.active = vit_rec.active = False
         launches = {**kernels.LAUNCHES, **vit_kernels.LAUNCHES,
-                    **ransac_kernels.LAUNCHES}
+                    **ransac_kernels.LAUNCHES, **select_kernels.LAUNCHES}
         st = SequenceState.allocate("synth_0", n_frames,
                                     Capacity.from_cfg(cfg), device="cpu")
         assert st.load(cache / "synth_0.npz"), "no checkpoint written"
@@ -2587,6 +2658,12 @@ def main() -> int:
                 f"ransac_gumbel_top3 launched "
                 f"{launches['ransac_gumbel_top3']} times on the main path, "
                 f"expected {2 * n_frames} (two RANSAC stages a frame)")
+        f_pad = frame_bucket(n_frames)
+        chunks = len(chunk_starts(f_pad, min(f_pad, CHUNK_PAGES)))
+        if launches["select_keep"] != chunks:
+            raise AssertionError(
+                f"select_keep launched {launches['select_keep']} times on "
+                f"the main path, expected {chunks} (one a clustering chunk)")
         main_attention = launches["fused_attention_proj"]
         main_ap = score(results, ds)
         boxes = np.concatenate([r["boxes_lidar"] for r in results])
@@ -2798,6 +2875,10 @@ def main() -> int:
             row["launches"] = launches["ransac_gumbel_top3"]
             rows.append(row)
             log("kernel ransac_gumbel_top3: " + json.dumps(row))
+        for row in check_select_keep(select_kernels):
+            row["launches"] = launches["select_keep"]
+            rows.append(row)
+            log("kernel select_keep: " + json.dumps(row))
 
         # ---- 5. CPU halves of the card-vs-CPU checks ----
         t0 = time.perf_counter()

@@ -181,14 +181,15 @@ def test_cluster_frames_chunk_equal(cap_in):
     xyz, m, ent, fv = _chunk_inputs()
     sj = JS.frame_select_stats_all(jnp.asarray(xyz), jnp.asarray(m),
                                    jnp.asarray(ent), jnp.asarray(fv))
-    st = TS.frame_select_stats_all(_t(xyz), _t(m), _t(ent), _t(fv))
+    f_real = int(fv.sum())
+    st = TS.frame_select_stats_all(_t(xyz), _t(m), _t(ent), f_real)
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     kw = dict(chunk=2, cap_in=cap_in, max_clusters=32, capacity=512)
     oj = JS.cluster_frames_chunk(jnp.asarray(xyz), jnp.asarray(m),
                                  jnp.asarray(ent), jnp.asarray(fv), sj, 1,
                                  666, **kw)
-    ot = TS.cluster_frames_chunk(_t(xyz), _t(m), _t(ent), _t(fv), st, 1, 666,
+    ot = TS.cluster_frames_chunk(_t(xyz), _t(m), _t(ent), f_real, st, 1, 666,
                                  **kw)
     for a, b, name in zip(oj, ot, ("labels", "probs", "det_n", "det_center",
                                    "det_static", "table")):

@@ -69,7 +69,7 @@ def jax_dissect(args, f0):
 @pytest.mark.parametrize("f0", [0, 4])
 def test_dissection_matches_jax(f0):
     host = debug_cluster_stepwise.make_buffers(FRAMES, N_NG)
-    args = tuple(torch.from_numpy(a) for a in host)
+    args = (*(torch.from_numpy(a) for a in host[:3]), int(host[3].sum()))
     sel, core, spans = debug_soak_cluster.dissect(
         args, frame_select_stats_all(*args), f0, CHUNK, CAP_IN)
     j_sel, j_core, j_spans = jax_dissect(tuple(map(jnp.asarray, host)), f0)

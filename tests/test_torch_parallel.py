@@ -308,7 +308,7 @@ def test_sharded_cluster_chunk_matches_single_device_and_jax(inputs, d):
     """Bit-equal to the single-device chunk (pages are distance- and
     cell-isolated); JAX's sharded chunk on the per-frame scene."""
     arrays, kw = inputs()
-    dev_args = tuple(_t(a) for a in arrays)
+    dev_args = (*(_t(a) for a in arrays[:3]), int(arrays[3].sum()))
     stats = TG.frame_select_stats_all(*dev_args)
     single = TG.cluster_frames_chunk(*dev_args, stats, 0, 666, **kw)
     got = TP.sharded_cluster_chunk(_mesh(d), TG.cluster_frames_chunk,

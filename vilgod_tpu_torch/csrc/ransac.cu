@@ -15,7 +15,8 @@
 //    (0, r * n + i mod 2^32) of row r and point i: jax's partitionable
 //    layout, as the plain version's _unit_floats lays it out;
 //  - the mantissa trick, f = float(bits((y0 ^ y1) >> 9 | 0x3F800000)) - 1
-//    and u = max(f + tiny, tiny);
+//    (both from threefry.cuh, shared with kernel 14) and
+//    u = max(f + tiny, tiny);
 //  - g = -xla_log(-xla_log(u)), XLA's CPU float32 logarithm (Cephes'
 //    polynomial, each product fused into the sum that follows it);
 //  - the score 0 + g where mask[i], else -inf (0 + g turns a -0 into +0);
@@ -71,6 +72,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -129,38 +132,11 @@ __device__ __forceinline__ float xla_log(float x) {
   return __fadd_rn(t, __fmul_rn(e, kQ2));
 }
 
-__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
-  return __funnelshift_l(v, v, r);
-}
-
-// threefry2x32 (20 rounds) of key (k0, k1, k0 ^ k1 ^ 0x1BD11BDA) over the
-// counter pair (0, c): y0 ^ y1
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
-                                                 uint32_t c) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = k0, x1 = c + k1;
-#define VILGOD_ROUND(r) x0 += x1; x1 = rotl(x1, r) ^ x0;
-  VILGOD_ROUND(13) VILGOD_ROUND(15) VILGOD_ROUND(26) VILGOD_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  VILGOD_ROUND(17) VILGOD_ROUND(29) VILGOD_ROUND(16) VILGOD_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  VILGOD_ROUND(13) VILGOD_ROUND(15) VILGOD_ROUND(26) VILGOD_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  VILGOD_ROUND(17) VILGOD_ROUND(29) VILGOD_ROUND(16) VILGOD_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  VILGOD_ROUND(13) VILGOD_ROUND(15) VILGOD_ROUND(26) VILGOD_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef VILGOD_ROUND
-  return x0 ^ x1;
-}
-
 // jax.random.gumbel's float32 draw of counter c: -log(-log(u)), u uniform
 // on [tiny, 1)
 __device__ __forceinline__ float gumbel(uint32_t k0, uint32_t k1,
                                         uint32_t c) {
-  const uint32_t bits = (threefry_xor(k0, k1, c) >> 9) | 0x3F800000u;
-  const float f = __fsub_rn(__uint_as_float(bits), 1.0f);
-  const float u = fmaxf(__fadd_rn(f, kTiny), kTiny);
+  const float u = fmaxf(__fadd_rn(unit_float(k0, k1, c), kTiny), kTiny);
   return -xla_log(-xla_log(u));
 }
 

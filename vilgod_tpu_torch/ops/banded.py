@@ -42,22 +42,20 @@ _INVALID_CID = GRID * GRID
 def cell_origin(xy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Lattice-snapped lower corner of a cloud: the default ``origin`` for
     :func:`cell_ids`."""
-    big = torch.tensor(1e9, dtype=xy.dtype, device=xy.device)
-    mn = torch.where(mask[:, None], xy[:, :2], big).amin(dim=0)
-    mn = torch.where(mn >= big, torch.zeros_like(mn), mn)  # empty cloud
+    mn = torch.where(mask[:, None], xy[:, :2], 1e9).amin(dim=0)
+    mn = torch.where(mn >= 1e9, 0.0, mn)  # empty cloud
     return (torch.floor(mn / CELL) - 1.0) * CELL
 
 
 def page_origins(xy: torch.Tensor, mask: torch.Tensor, pages: torch.Tensor,
                  n_pages: int) -> torch.Tensor:
     """Per-page :func:`cell_origin` (n_pages, 2) for paged clouds."""
-    big = torch.tensor(1e9, dtype=xy.dtype, device=xy.device)
     seg = torch.where(mask, pages.long(), n_pages)
-    vals = torch.where(mask[:, None], xy[:, :2], big)
+    vals = torch.where(mask[:, None], xy[:, :2], 1e9)
     mins = torch.full((n_pages + 1, 2), 1e9, dtype=xy.dtype, device=xy.device)
     mins = mins.scatter_reduce(0, seg[:, None].expand(-1, 2), vals, "amin",
                                include_self=True)[:n_pages]
-    mins = torch.where(mins >= big, torch.zeros_like(mins), mins)
+    mins = torch.where(mins >= 1e9, 0.0, mins)
     return (torch.floor(mins / CELL) - 1.0) * CELL
 
 
@@ -72,9 +70,7 @@ def cell_ids(xy: torch.Tensor, mask: torch.Tensor,
     rel = xy[:, :2] - origin
     cx = torch.clamp(torch.floor(rel[:, 0] / CELL).to(torch.int32), 0, GRID - 1)
     cy = torch.clamp(torch.floor(rel[:, 1] / CELL).to(torch.int32), 0, GRID - 1)
-    return torch.where(mask, cx * GRID + cy,
-                       torch.tensor(_INVALID_CID, dtype=torch.int32,
-                                    device=xy.device))
+    return torch.where(mask, cx * GRID + cy, _INVALID_CID)
 
 
 def sort_by_cell(points: torch.Tensor, mask: torch.Tensor,

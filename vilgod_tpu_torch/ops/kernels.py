@@ -57,9 +57,7 @@ def reset_launches():
 def prep_t8(points: torch.Tensor, mask: torch.Tensor, tile: int) -> torch.Tensor:
     """(N, F<=8) + mask -> (8, N_pad) transposed, sentinel-masked, contiguous."""
     n, f = points.shape
-    pts = torch.where(mask[:, None], points.to(torch.float32),
-                      torch.tensor(SENTINEL, dtype=torch.float32,
-                                   device=points.device))
+    pts = torch.where(mask[:, None], points.to(torch.float32), SENTINEL)
     pad_n = -n % tile
     out = torch.zeros((8, n + pad_n), dtype=torch.float32, device=points.device)
     out[:f, :n] = pts.T

@@ -83,6 +83,39 @@ def radius_count_self(points, mask, radius: float,
     return torch.clamp(torch.clamp(c - 1, min=0), max=max_count)
 
 
+def radius_count_self_paged(points, mask, radius: float,
+                            max_count: int = 1000) -> torch.Tensor:
+    """:func:`radius_count_self` of G clouds ("pages") in one banded pass:
+    points (G, N, 3) and mask (G, N) -> (G, N) int32, equal to the counts
+    of each page on its own. Pages pad to whole data tiles, sort by a
+    paged cell id (their windows never span a page gap) and carry a 4th
+    ``page * PAGE_ISO`` coordinate, so no pair across pages counts even
+    at full width; it adds 0.0 to every same-page squared distance, which
+    leaves it unchanged. The band is the paged passes'
+    (:func:`~.banded.page_band_width`, with the middle tier)."""
+    g, n = mask.shape
+    pad = -n % TD
+    if pad:
+        points = torch.nn.functional.pad(points, (0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    nf = g * (n + pad)
+    flat, flat_mask = points.reshape(nf, 3), mask.reshape(nf)
+    pages = torch.arange(g, dtype=torch.int32,
+                         device=points.device).repeat_interleave(n + pad)
+    order, cid = paged_cell_sort(flat, flat_mask, pages, g)
+    p4 = torch.cat([flat, (pages.to(flat.dtype) * PAGE_ISO)[:, None]], 1)
+    t8 = prep_t8(p4[order], flat_mask[order], 1)
+    tq = min(TQ, nf)
+    starts, w, ends = pass_window(cid, cid, tq, page_band_width(nf, g),
+                                  invalid_cid=g * GRID * GRID, middle=True)
+    c = torch.empty(nf, dtype=torch.int32, device=points.device)
+    c[order] = banded_radius_count(t8, t8, starts, radius2_threshold(radius),
+                                   tq, w, ndim=4, ends=ends)
+    c = torch.clamp(torch.where(flat_mask, c, 0), max=max_count + 1)
+    c = torch.clamp(torch.clamp(c - 1, min=0), max=max_count)
+    return c.reshape(g, n + pad)[:, :n]
+
+
 # data points per block of the k > 1 search (the JAX package's default)
 KNN_BLOCK = 4096
 

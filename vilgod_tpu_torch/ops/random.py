@@ -9,9 +9,10 @@ The port reproduces those draws exactly: threefry2x32 with 20 rounds, the
 the mantissa trick of ``uniform``, and the float32 logarithm XLA's CPU
 backend emits (:func:`xla_log`), so both packages draw the same numbers.
 
-Keys are uint32 pairs held in int64 tensors (values in [0, 2**32)); the
-arithmetic runs in int64 and masks to 32 bits, which works on every
-device torch supports.
+Keys are uint32 pairs of Python integers; :func:`PRNGKey` and
+:func:`fold_in` stay on the host (no tensor, no device). Draws hold the
+words in int64 tensors (values in [0, 2**32)); the arithmetic runs in
+int64 and masks to 32 bits, which works on every device torch supports.
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ def _rotl(v, r):
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+def threefry2x32(k0, k1, x0, x1):
     """The threefry2x32 block cipher (20 rounds) of key (k0, k1) over the
-    counter pairs (x0, x1) -> (y0, y1), as jax's ``threefry2x32_p``."""
+    counter pairs (x0, x1) -> (y0, y1), as jax's ``threefry2x32_p``: on
+    Python integers, or on int64 tensors that broadcast (a column of keys
+    against a row of counters draws one row a key)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -49,11 +52,9 @@ def PRNGKey(seed: int) -> tuple[int, int]:
 
 
 def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
-    """``jax.random.fold_in(key, data)``: the key hashed with (0, data)."""
-    y0, y1 = threefry2x32(key[0], key[1],
-                          torch.tensor([0], dtype=torch.int64),
-                          torch.tensor([int(data) & _MASK], dtype=torch.int64))
-    return int(y0), int(y1)
+    """``jax.random.fold_in(key, data)``: the key hashed with (0, data), in
+    Python integer arithmetic."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _MASK)
 
 
 def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
@@ -63,9 +64,10 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
     return list(zip(y0.tolist(), y1.tolist()))
 
 
-def _unit_floats(key: tuple[int, int], n: int, device) -> torch.Tensor:
+def _unit_floats(key, n: int, device) -> torch.Tensor:
     """n floats in [0, 1): 23 random mantissa bits under the exponent of
-    1.0, minus 1 (``jax.random._uniform``)."""
+    1.0, minus 1 (``jax.random._uniform``); (rows, n) for a key of two
+    (rows, 1) int64 columns."""
     counts = torch.arange(n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(counts), counts)
     float_bits = ((y0 ^ y1) >> 9) | 0x3F800000
@@ -75,6 +77,14 @@ def _unit_floats(key: tuple[int, int], n: int, device) -> torch.Tensor:
 def uniform(key: tuple[int, int], n: int, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, (n,))`` in float32 on ``device``."""
     return torch.clamp(_unit_floats(key, n, device), min=0.0)
+
+
+def uniform_rows(keys, n: int, device=None) -> torch.Tensor:
+    """:func:`uniform` of each key of ``keys`` (a list of (k0, k1)) ->
+    (len(keys), n) float32 on ``device``, one row a key."""
+    k = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2)
+    return torch.clamp(_unit_floats((k[:, :1], k[:, 1:]), n, device),
+                       min=0.0)
 
 
 # Cephes' log polynomial, as XLA's CPU backend evaluates it

@@ -91,19 +91,23 @@ def sharded_cluster_chunk(mesh: Mesh, cluster_fn, dev_args: tuple,
     shard's paged launch is independent and the per-frame outputs equal
     the single-device chunk's.
 
-    ``dev_args`` = (ng_xyz, ng_mask, ng_entropy, frame_valid) and
-    ``stats`` replicate across the mesh (each frame's selection window
-    reads neighbouring frames, so work, not data, is what shards). Returns
-    the per-frame outputs, each concatenated on the mesh's first device.
+    ``dev_args`` = (ng_xyz, ng_mask, ng_entropy, f_real): the three
+    buffers and ``stats`` replicate across the mesh (each frame's
+    selection window reads neighbouring frames, so work, not data, is
+    what shards); ``f_real``, the real frame count, goes to every shard.
+    Returns the per-frame outputs, each concatenated on the mesh's first
+    device.
     """
     d = mesh.shape[axis]
     if chunk % d != 0:
         raise ValueError(f"chunk ({chunk}) must divide over the mesh ({d})")
     chunk_local = chunk // d
     repl = replicated(mesh)
-    args = [repl.put(a) for a in dev_args]
+    *buffers, f_real = dev_args
+    args = [repl.put(a) for a in buffers]
     stats_r = [repl.put(s) for s in stats]
-    outs = [cluster_fn(*(a[i] for a in args), tuple(s[i] for s in stats_r),
+    outs = [cluster_fn(*(a[i] for a in args), f_real,
+                       tuple(s[i] for s in stats_r),
                        int(f0) + i * chunk_local, seed, chunk=chunk_local,
                        **static_kw)
             for i in range(d)]

@@ -22,11 +22,18 @@ from ..ops import segment as seg_ops
 from ..ops.banded import CELL
 from ..ops.cluster import dbscan_labels, dbscan_labels_paged, paged_cell_sort
 from ..ops.entropy import entropy_sequence
-from ..ops.neighbors import knn_labels, knn_labels_paged, radius_count_self
+from ..ops.neighbors import (knn_labels, knn_labels_paged,
+                             radius_count_self_paged)
 from ..ops.plane import _dot3, fit_ground_plane
+from ..ops.select_kernels import page_keys, select_keep, window_frames
 from ..ops.transforms import apply_transform
 from ..utils import trace
 from .state import SequenceState
+
+
+# pages (frame windows) of a clustering chunk at most, and frames of a
+# group of the selection statistics' paged counts
+CHUNK_PAGES = 32
 
 
 def frame_bucket(n_frames: int, bucket: int = 8) -> int:
@@ -215,64 +222,68 @@ def calculate_entropy_scores(state: SequenceState, cfg,
 # Stage 3: spatial_clustering
 # ---------------------------------------------------------------------------
 
-def frame_select_stats_all(ng_xyz, ng_mask, ng_entropy, frame_valid):
+def frame_select_stats_all(ng_xyz, ng_mask, ng_entropy, f_real: int):
     """Per-frame selection inputs, computed once per frame:
-    (has_neighbor (F, N), dense_moving (F, N), entropy_mask (F, N)).
+    (has_neighbor (F, N), dense_moving (F, N), entropy_mask (F, N)), all
+    False from frame ``f_real`` (the real frame count) on.
 
     Points with no same-cloud neighbour within 0.2 m drop out; moving
     points (entropy < 0.6) re-admit only with >= 2 moving neighbours
-    within sqrt(0.1) m."""
-    out = ([], [], [])
-    masks = ng_mask & frame_valid[:, None]
-    for f in range(ng_xyz.shape[0]):
-        xyz, m, ent = ng_xyz[f], masks[f], ng_entropy[f]
-        counts = radius_count_self(xyz, m, 0.2, max_count=100)
-        entropy_mask = m & (ent < 0.6)
-        moving = radius_count_self(xyz, entropy_mask, float(np.sqrt(0.1)),
-                                   max_count=4)
+    within sqrt(0.1) m. The real frames count in groups of at most
+    ``CHUNK_PAGES``, each group one paged banded count a radius
+    (:func:`~..ops.neighbors.radius_count_self_paged`, equal to each
+    frame's own count)."""
+    out = [torch.zeros(ng_mask.shape, dtype=torch.bool, device=ng_mask.device)
+           for _ in range(3)]
+    for g0 in range(0, f_real, CHUNK_PAGES):
+        g = slice(g0, min(g0 + CHUNK_PAGES, f_real))
+        xyz, m = ng_xyz[g], ng_mask[g]
+        counts = radius_count_self_paged(xyz, m, 0.2, max_count=100)
+        entropy_mask = m & (ng_entropy[g] < 0.6)
+        moving = radius_count_self_paged(xyz, entropy_mask,
+                                         float(np.sqrt(0.1)), max_count=4)
         for acc, v in zip(out, (counts >= 1, moving >= 2, entropy_mask)):
-            acc.append(v)
-    return tuple(torch.stack(a) for a in out)
+            acc[g] = v
+    return tuple(out)
 
 
-def select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid, fnr: int,
-                         seed: int, stats, n_frames_window: int, cap_in: int):
-    """Frame ``fnr``'s compacted n-frame 5-D cluster input [xyz, entropy,
-    0.1 * frame offset]. The 1/n subsample is a Bernoulli(1/n) draw per
-    point from the JAX package's threefry keys (bit-identical draws).
-    Returns (features (cap_in, 5), mask (cap_in,), src_frame, src_index)."""
-    f_total, n = ng_xyz.shape[:2]
+def select_cluster_input(ng_xyz, ng_mask, ng_entropy, f_real: int, f0: int,
+                         chunk: int, seed: int, stats, n_frames_window: int,
+                         cap_in: int):
+    """The compacted n-frame 5-D cluster inputs [xyz, entropy, 0.1 * frame
+    offset] of pages (frames) ``f0 .. f0 + chunk - 1``, as batched device
+    work with no host read. The 1/n subsample is a Bernoulli(1/n) draw per
+    point from the JAX package's threefry keys (bit-identical draws), made
+    with the keep rule by ``ops/select_kernels.select_keep`` (one launch
+    on the card). Each page's buffer holds its kept points first, in
+    window-frame and row order, then the others as filler: the slots of
+    ``argsort(~keep, stable=True)[:cap_in]``. Returns (features (chunk,
+    cap_in, 5), mask (chunk, cap_in), src_frame, src_index (chunk,
+    cap_in))."""
+    n_frames, n = ng_mask.shape
     dev = ng_xyz.device
-    f_real = int(frame_valid.sum())
-    base_key = jrandom.PRNGKey(seed)
-    lo = min(max(fnr, 0), max(f_real - n_frames_window, 0))
-    feats, keeps = [], []
-    for rel in range(n_frames_window):
-        f = min(lo + rel, f_total - 1)
-        valid = bool(frame_valid[f]) and lo + rel == f
-        m = ng_mask[f] & valid
-        key = jrandom.fold_in(jrandom.fold_in(base_key, fnr), rel)
-        rand_keep = jrandom.uniform(key, n, device=dev) < (1.0 / n_frames_window)
-        has_nbr, dense_moving, entropy_mask = (s[f] for s in stats)
-        em = entropy_mask & valid
-        keep = rand_keep & m & has_nbr
-        keep = torch.where(em, dense_moving & m, keep)
-        offset = (torch.tensor(rel, dtype=torch.float32)
-                  * torch.tensor(0.1, dtype=torch.float32))
-        feats.append(torch.cat([ng_xyz[f], ng_entropy[f][:, None],
-                                offset.to(dev).expand(n, 1)], dim=1))
-        keeps.append(keep)
-    feats = torch.cat(feats)
-    keep = torch.cat(keeps)
-    # compaction into the fixed cluster-input buffer (stable: kept points
-    # first, in frame/row order)
-    order = torch.argsort((~keep).to(torch.uint8), stable=True)[:cap_in]
-    features = feats[order]
-    feat_mask = torch.arange(cap_in, device=dev) < keep.sum()
+    nfw = n_frames_window
+    keep = select_keep(page_keys(seed, f0, chunk, nfw), ng_mask, *stats, f0,
+                       nfw, f_real)
+    lo, frames, _ = window_frames(f0, chunk, nfw, f_real, n_frames, dev)
+    # a kept point's slot: the kept before it; another's: all kept, then
+    # the others before it (a permutation of each page's nfw * n rows)
+    kept = keep.sum(dim=1)
+    before = torch.cumsum(keep, dim=1)
+    rows = torch.arange(nfw * n, device=dev).expand(chunk, -1)
+    slot = torch.where(keep, before - 1, kept[:, None] + rows - before)
+    order = torch.empty_like(slot).scatter_(1, slot, rows)[:, :cap_in]
+    rel, src_index = order // n, order % n
+    flat = torch.gather(frames, 1, rel) * n + src_index
+    offset = (torch.arange(nfw, dtype=torch.float32, device=dev)
+              * torch.full((), 0.1, dtype=torch.float32, device=dev))
+    features = torch.cat([ng_xyz.reshape(-1, 3)[flat],
+                          ng_entropy.reshape(-1)[flat][..., None],
+                          offset[rel][..., None]], dim=2)
+    feat_mask = torch.arange(cap_in, device=dev) < kept[:, None]
     # provenance per slot: which (frame, ng row) it came from
-    src_frame = (lo + order // n).to(torch.int32)
-    src_index = (order % n).to(torch.int32)
-    return features, feat_mask, src_frame, src_index
+    src_frame = (lo[:, None] + rel).to(torch.int32)
+    return features, feat_mask, src_frame, src_index.to(torch.int32)
 
 
 def _post(lab_raw_in, probs, ngm, xyz, ent, prob_threshold, ephe_percentile,
@@ -318,27 +329,22 @@ def _post(lab_raw_in, probs, ngm, xyz, ent, prob_threshold, ephe_percentile,
     return lab, probs, cnt, det_center, det_static, table
 
 
-def window_origins(ng_xyz, ng_mask, frame_valid, f0: int, chunk: int,
+def window_origins(ng_xyz, ng_mask, f_real: int, f0: int, chunk: int,
                    n_frames_window: int) -> torch.Tensor:
     """Each page's grid origin (chunk, 2): the corner of its frame WINDOW,
     which covers the selected data and the frame's full query cloud, so
-    the label transfer reuses the data's sort with a shared grid."""
-    f_real = int(frame_valid.sum())
-    corners = []
-    for i in range(chunk):
-        lo = min(max(f0 + i, 0), max(f_real - n_frames_window, 0))
-        mins = []
-        for rel in range(n_frames_window):
-            f = min(lo + rel, ng_xyz.shape[0] - 1)
-            m = ng_mask[f] & frame_valid[f] & (lo + rel == f)
-            mins.append(torch.where(m[:, None], ng_xyz[f][:, :2],
-                                    1e9).amin(dim=0))
-        mn = torch.stack(mins).amin(dim=0)
-        corners.append(torch.where(mn >= 1e9, 0.0, mn))
-    return (torch.floor(torch.stack(corners) / CELL) - 1.0) * CELL
+    the label transfer reuses the data's sort with a shared grid. One
+    masked minimum over every page's window frames."""
+    _, frames, valid = window_frames(f0, chunk, n_frames_window, f_real,
+                                     ng_xyz.shape[0], ng_xyz.device)
+    m = ng_mask[frames] & valid[..., None]
+    mn = torch.where(m[..., None], ng_xyz[..., :2][frames],
+                     1e9).amin(dim=(1, 2))
+    mn = torch.where(mn >= 1e9, 0.0, mn)
+    return (torch.floor(mn / CELL) - 1.0) * CELL
 
 
-def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
+def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, f_real: int, stats,
                          f0: int, seed: int, chunk: int = 8,
                          n_frames_window: int = 2, cap_in: int = 65536,
                          eps: float = 0.15, min_samples: int = 5,
@@ -348,17 +354,15 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
                          ephe_min_score: float = 0.5,
                          max_clusters: int = 256, capacity: int = 4096,
                          direct_transfer: bool = True):
-    """Cluster ``chunk`` consecutive frames. Big pages (``cap_in >=
-    16384``) run ONE paged clustering and ONE paged label transfer for the
-    whole chunk; small pages cluster frame by frame. Returns the per-frame
-    (labels, probs, det_n, det_center, det_static, table), each stacked
-    over the chunk."""
+    """Cluster ``chunk`` consecutive frames of the ``f_real`` real ones.
+    Big pages (``cap_in >= 16384``) run ONE paged clustering and ONE paged
+    label transfer for the whole chunk; small pages cluster frame by
+    frame. Returns the per-frame (labels, probs, det_n, det_center,
+    det_static, table), each stacked over the chunk."""
     with trace.span("cluster.select"):
-        sel = [select_cluster_input(ng_xyz, ng_mask, ng_entropy, frame_valid,
-                                    f0 + i, seed, stats, n_frames_window,
-                                    cap_in)
-               for i in range(chunk)]
-        feats, fmask, src_f, src_i = (torch.stack(x) for x in zip(*sel))
+        feats, fmask, src_f, src_i = select_cluster_input(
+            ng_xyz, ng_mask, ng_entropy, f_real, f0, chunk, seed, stats,
+            n_frames_window, cap_in)
     n_ng = ng_xyz.shape[1]
     dev = ng_xyz.device
     chunk_xyz = ng_xyz[f0:f0 + chunk]
@@ -369,7 +373,7 @@ def cluster_frames_chunk(ng_xyz, ng_mask, ng_entropy, frame_valid, stats,
         flat_mask = fmask.reshape(chunk * cap_in)
         page_ids = torch.arange(chunk, dtype=torch.int32, device=dev)
         pages = page_ids.repeat_interleave(cap_in)
-        orig = window_origins(ng_xyz, ng_mask, frame_valid, f0, chunk,
+        orig = window_origins(ng_xyz, ng_mask, f_real, f0, chunk,
                               n_frames_window)
         presorted = paged_cell_sort(flat_feats, flat_mask, pages, chunk,
                                     origins=orig)
@@ -459,10 +463,9 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
 
     f_pad = frame_bucket(f_total)
     n_ng = state.ng_bucket()
-    fv = _frame_valid(f_total, f_pad, state.torch_device)
     dev_args = (state.device("ng_xyz", f_pad, n_ng),
                 state.device("ng_mask", f_pad, n_ng),
-                state.device("ng_entropy", f_pad, n_ng), fv)
+                state.device("ng_entropy", f_pad, n_ng), f_total)
     seed = cfg.get("random_seed", 666)
 
     with trace.span("cluster.stats"):
@@ -470,8 +473,8 @@ def spatial_clustering(state: SequenceState, cfg, n_frames: int = 2,
     # the cluster input holds ~1/n_frames of each window frame: bounded by
     # one frame's occupancy bucket
     cap_in = min(cap_in, max(4096, -(-n_ng // 2048) * 2048))
-    # all frame windows are pages of one chunk (<= 32 pages per chunk)
-    chunk = min(f_pad, 32)
+    # all frame windows are pages of one chunk
+    chunk = min(f_pad, CHUNK_PAGES)
     kernel_kw = dict(
         n_frames_window=n_frames, cap_in=cap_in,
         eps=model.get("cluster_selection_epsilon", 0.15),

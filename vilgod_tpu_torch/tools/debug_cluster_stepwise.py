@@ -99,8 +99,9 @@ def run(frames: int = 200, n_ng: int = N_NG, sync_each: bool = True,
         steps.append((label, seconds))
         return out
 
-    dev_args = timed("upload", lambda: tuple(torch.from_numpy(a).to(device)
-                                             for a in host))
+    dev_args = timed("upload", lambda: (*(torch.from_numpy(a).to(device)
+                                          for a in host[:3]),
+                                        int(host[3].sum())))
     stats = timed("frame_select_stats_all",
                   lambda: frame_select_stats_all(*dev_args))
     chunk = min(frames, 32)

@@ -55,17 +55,17 @@ def band_for(n: int, chunk: int) -> int:
 
 def dissect(dev_args, stats, f0: int, chunk: int, cap_in: int,
             seed: int = CLUSTER_SEED):
-    """One chunk's window dissection: (selected points a page (chunk,),
-    core points, {window set: (largest true span, overflow)})."""
+    """One chunk's window dissection over ``dev_args`` (ng_xyz, ng_mask,
+    ng_entropy, f_real): (selected points a page (chunk,), core points,
+    {window set: (largest true span, overflow)})."""
     from ..ops.banded import block_windows, banded_radius_count3
     from ..ops.cluster import _core_radii
     from ..ops.kernels import TQ, TQ_HEAVY
     from ..pipeline.stages_geometry import select_cluster_input
     from .debug_band_width import band_inputs, core_levels
 
-    sel = [select_cluster_input(*dev_args, f0 + i, seed, stats, 2, cap_in)
-           for i in range(chunk)]
-    feats, fmask = (torch.stack(x) for x in list(zip(*sel))[:2])
+    feats, fmask, _, _ = select_cluster_input(*dev_args, f0, chunk, seed,
+                                              stats, 2, cap_in)
     pts_t8, cid, msk, invalid = band_inputs(feats, fmask)
     n = cid.shape[0]
     w_band = band_for(n, chunk)
@@ -102,7 +102,7 @@ def run(frames: int = 200, launch: bool = False, device=None, state=None,
     chunk, launch_s: seconds per chunk run}."""
     from ..data import SyntheticDataset
     from ..pipeline.runner import ZeroShotDetector
-    from ..pipeline.stages_geometry import (_frame_valid, chunk_starts,
+    from ..pipeline.stages_geometry import (chunk_starts,
                                             cluster_frames_chunk,
                                             frame_bucket,
                                             frame_select_stats_all)
@@ -129,8 +129,7 @@ def run(frames: int = 200, launch: bool = False, device=None, state=None,
           f"ng_occ_max={int(state._ng_counts.max())}", flush=True)
     dev_args = (state.device("ng_xyz", f_pad, n_ng),
                 state.device("ng_mask", f_pad, n_ng),
-                state.device("ng_entropy", f_pad, n_ng),
-                _frame_valid(state.n_frames, f_pad, device))
+                state.device("ng_entropy", f_pad, n_ng), state.n_frames)
     stats, _ = step("frame_select_stats_all",
                     lambda: frame_select_stats_all(*dev_args), device,
                     width=44)

@@ -15,8 +15,10 @@ stages give it (they drive the banded kernels' cost), then times:
   (``segment_sequence_chained``) at each ``--chains`` k (k = 1 is the
   single scan);
 - entropy: the whole-sequence ``entropy_sequence``;
-- cluster: the selection statistics and the cluster-input selection of
-  one chunk of pages, ``dbscan_labels_paged`` whole, then its passes one
+- cluster: the selection statistics (two paged counts a group of 32
+  frames) and the batched cluster-input selection of one chunk of pages
+  (one ``select_keep`` launch, kernel 14), ``dbscan_labels_paged``
+  whole, then its passes one
   by one: the cell sort, the 3-level count (kernel 2), one min-label round
   (kernel 3) and the propagation to convergence with the number of rounds
   it took, and the border-attach nearest pass (kernel 4); then the kNN
@@ -27,7 +29,7 @@ stages give it (they drive the banded kernels' cost), then times:
 
 Each part is run once untimed, then ``--reps`` times between
 ``torch.cuda.synchronize`` calls (the host clock); a line gives the
-median ms and the launches of kernels 1-5 (and any other kernel of the
+median ms and the launches of kernels 1-5 (and every other kernel of the
 port) per call. The last line is the rows as one JSON object. It writes
 no file. Runs on ``cuda`` unless ``--scale smoke``.
 """
@@ -54,9 +56,10 @@ def sync(device):
 def _launches() -> dict:
     """Every kernel launch count of the port, by kernel name."""
     from ..models import vit_kernels
-    from ..ops import dense_kernels, kernels
+    from ..ops import dense_kernels, kernels, ransac_kernels, select_kernels
     return {**kernels.LAUNCHES, **dense_kernels.LAUNCHES,
-            **vit_kernels.LAUNCHES}
+            **vit_kernels.LAUNCHES, **ransac_kernels.LAUNCHES,
+            **select_kernels.LAUNCHES}
 
 
 def timed(label: str, fn, reps: int, device) -> dict:
@@ -227,9 +230,9 @@ def _paged_passes(feats, fmask, pages, chunk, presorted, eps, min_samples):
 
 class ClusterInputs(NamedTuple):
     """The clustering stage's inputs on a state's buffers: its (ng_xyz,
-    ng_mask, ng_entropy, frame_valid) arguments, their selection
-    statistics, the selection of the first chunk of pages (``select()``)
-    and its result, the page capacity and the pages in a chunk."""
+    ng_mask, ng_entropy, f_real) arguments, their selection statistics,
+    the batched selection of the first chunk of pages (``select()``) and
+    its result, the page capacity and the pages in a chunk."""
     dev_args: tuple
     stats: tuple
     select: Callable
@@ -247,9 +250,9 @@ def cluster_inputs(state, cfg) -> ClusterInputs:
                                             select_cluster_input)
 
     seed = cfg.get("random_seed", 666)
-    xyz, ngm, fv = _entropy_args(state)
+    xyz, ngm, _ = _entropy_args(state)
     ent = state.device("ng_entropy", xyz.shape[0], xyz.shape[1])
-    dev_args = (xyz, ngm, ent, fv)
+    dev_args = (xyz, ngm, ent, state.n_frames)
     n_ng = xyz.shape[1]
     cap_in = min(cfg.get("capacity", {}).get("max_cluster_input", 65536),
                  max(4096, -(-n_ng // 2048) * 2048))
@@ -257,9 +260,8 @@ def cluster_inputs(state, cfg) -> ClusterInputs:
     stats = frame_select_stats_all(*dev_args)
 
     def select():
-        sel = [select_cluster_input(*dev_args, i, seed, stats, 2, cap_in)
-               for i in range(chunk)]
-        return [torch.stack(x) for x in zip(*sel)]
+        return select_cluster_input(*dev_args, 0, chunk, seed, stats, 2,
+                                    cap_in)
 
     feats, fmask, _, _ = select()
     return ClusterInputs(dev_args, stats, select, feats, fmask, cap_in, chunk)
@@ -278,12 +280,12 @@ def bench_cluster(state, cfg, reps: int, device) -> list:
     mcs = model.get("min_cluster_size", 15)
     dev_args, _, select, feats, fmask, cap_in, chunk = cluster_inputs(state,
                                                                        cfg)
-    xyz, ngm, _, fv = dev_args
+    xyz, ngm, _, f_real = dev_args
     n_ng = xyz.shape[1]
     rows = [timed("frame_select_stats_all",
                   lambda: frame_select_stats_all(*dev_args), reps, device),
-            timed(f"select_cluster_input ({chunk} pages)", select, reps,
-                  device)]
+            timed(f"select_cluster_input (one chunk of {chunk} pages)",
+                  select, reps, device)]
     occ = fmask.sum(dim=1).cpu().numpy()
     print(f"  pages={chunk} cap_in={cap_in} points a page: min={occ.min()} "
           f"median={int(np.median(occ))} max={occ.max()}")
@@ -291,7 +293,7 @@ def bench_cluster(state, cfg, reps: int, device) -> list:
     flat_mask = fmask.reshape(chunk * cap_in)
     pages = torch.arange(chunk, dtype=torch.int32,
                          device=xyz.device).repeat_interleave(cap_in)
-    orig = window_origins(xyz, ngm, fv, 0, chunk, 2)
+    orig = window_origins(xyz, ngm, f_real, 0, chunk, 2)
 
     def sort():
         return paged_cell_sort(flat_feats, flat_mask, pages, chunk,

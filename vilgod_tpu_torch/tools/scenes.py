@@ -7,7 +7,9 @@ of this package drive.
 radius the banded passes refuse and a cluster input that sends clustering
 and the label transfer to the dense kernels. ``RANSAC_SHAPES`` and
 :func:`ground_cloud` give the filter's RANSAC draw its inputs at the
-benchmark cells' shapes.
+benchmark cells' shapes; ``SELECT_SHAPES`` and :func:`select_masks` give
+the clustering's input selection (kernel 14) its inputs at those cells'
+shapes.
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ DENSE_CLUSTER_INPUT = 16000
 # valid points of the cell's fullest frame)
 RANSAC_SHAPES = {"waymo.urban": (155648, 153172),
                  "av2.urban": (106496, 102231)}
+# the clustering's input selection in the benchmark's cells: (padded
+# frames, real frames, non-ground bucket); a chunk holds 32 pages of two
+# window frames
+SELECT_SHAPES = {"waymo.urban": (200, 199, 40960),
+                 "av2.urban": (152, 150, 32768)}
 
 
 def ground_cloud(bucket: int, n_valid: int, seed: int = 0):
@@ -54,6 +61,21 @@ def ground_cloud(bucket: int, n_valid: int, seed: int = 0):
     pts[:n_valid, 3] = torch.rand(n_valid, generator=g)
     mask = torch.arange(bucket) < n_valid
     return pts, mask
+
+
+def select_masks(frames: int, n: int, seed: int = 0):
+    """(mask, has_nbr, dense_moving, entropy_mask), each (frames, n) bool
+    on the CPU: the selection's inputs as the statistics nest them (every
+    set within the mask, the dense moving points within the moving ones),
+    80 % of a frame's rows occupied, 70 % of those with a neighbour, 60 %
+    moving, half of those dense."""
+    g = torch.Generator().manual_seed(seed)
+    mask = torch.arange(n) < n * 4 // 5
+    mask = mask.expand(frames, n).clone()
+    has_nbr = mask & (torch.rand((frames, n), generator=g) < 0.7)
+    moving = mask & (torch.rand((frames, n), generator=g) < 0.6)
+    dense = moving & (torch.rand((frames, n), generator=g) < 0.5)
+    return mask, has_nbr, dense, moving
 
 
 def main_path(scale: str = "full"):
