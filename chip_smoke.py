@@ -165,7 +165,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    577, 1024) and its 512-image tail batch, every image held to the plain
    version, and timed there with its own by-part line; then the nine stages
    once more with the ViT-L/14@336px tower, its launches of kernel 5 by
-   core counted (every layer of every call the long core) (assert_close
+   core counted (every layer of every call the long core), and at DFN5B
+   ViT-H/14-378's x (2048, 730, 1280), 16 heads of 80 (the streaming core)
+   and its tail batch, the same way, and the nine stages with that tower at
+   ``clip_batch`` 256 (every layer of every call the streaming core)
+   (assert_close
    rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3), with a line that splits
    ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
    core and output GEMM (ms, TFLOP/s, GB/s, bound, and each part's
@@ -1132,22 +1136,25 @@ def vit_long_args(device, n_images=2048, t=577, width=1024, heads=16,
             draw(width, scale=0.01), heads)
 
 
-def check_vit_long(vit_kernels, chunk=128, tail=512):
+def check_vit_long(vit_kernels, chunk=128, tail=512, t=577, width=1024,
+                   heads=16):
     """``fused_attention_proj`` at ViT-L/14@336px's shape, x (2048, 577,
     1024) bf16, 16 heads (the classifier's full batch of 512 items, four
-    views each: the long core): the kernel's whole output held to the plain
-    version over chunks of ``chunk`` images (its f32 logits of the whole
-    batch would take 44 GB), on that call and on the stage's tail batch of
-    ``tail`` images (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| <
-    1e-3 over the call); kernel, plain, torch-composite and bound times,
-    and the by-part line."""
+    views each: the long core), or at another (``t``, ``width``,
+    ``heads``): DFN5B ViT-H/14-378's (730, 1280, 16 heads of 80) takes the
+    streaming core. The kernel's whole output held to the plain version
+    over chunks of ``chunk`` images (its f32 logits of the whole batch
+    would take 44 GB at 577 tokens), on that call and on the stage's tail
+    batch of ``tail`` images (assert_close rtol 1.6e-2, atol 1e-2, mean
+    |diff| < 1e-3 over the call); kernel, plain, torch-composite and bound
+    times, and the by-part line."""
     import torch
 
     name = "fused_attention_proj"
     kernel = getattr(vit_kernels, name)
     kernel = getattr(kernel, "wrapped", kernel)
     plain = vit_kernels.PLAIN[name]
-    args = vit_long_args("cuda")
+    args = vit_long_args("cuda", t=t, width=width, heads=heads)
     errs = {}
     for n in (args[0].shape[0], tail):
         call = (args[0][:n], *args[1:])
@@ -1163,7 +1170,7 @@ def check_vit_long(vit_kernels, chunk=128, tail=512):
         mean_err = total / got.numel()
         if mean_err >= 1e-3:
             raise AssertionError(f"{name}: mean |kernel - plain| {mean_err} "
-                                 f"on {n} images of 577 tokens")
+                                 f"on {n} images of {t} tokens")
         errs[n] = {"max_abs_err": err, "mean_abs_err": mean_err}
         del got
     split = attention_split(args, vit_kernels)
@@ -1189,19 +1196,23 @@ def check_vit_long(vit_kernels, chunk=128, tail=512):
             "by_part": split}
 
 
-def check_vit_long_path(ds, vit_kernels):
+def check_vit_long_path(ds, vit_kernels, model_name="ViT-L-14-336px.pt",
+                        core="long", clip_batch=CAPS["clip_batch"]):
     """The main path's nine stages (``run_sequences``, phase 3's scene and
     caps) with the ViT-L/14@336px tower in bf16 (random weights from seed
-    0), chosen by the configuration's ``model_name``: kernel 5's launches
-    by core in that run alone. Every tower call takes the long core in each
-    of its 24 layers, none the one-pass core."""
+    0), or the tower ``model_name`` names, chosen by the configuration's
+    ``model_name``: kernel 5's launches by core in that run alone. Every
+    tower call takes the long core (DFN5B ViT-H/14-378: the streaming core,
+    at ``clip_batch`` 256 as its cell runs it) in each of its layers, no
+    other core."""
     import torch
     from vilgod_tpu_torch.config import waymo_config
     from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
     from vilgod_tpu_torch.pipeline.runner import run_sequences
 
-    cfg = waymo_config(capacity=CAPS, pipeline_active=STAGES)
-    cfg["preprocessor"]["clip"]["model_name"] = "ViT-L-14-336px.pt"
+    cfg = waymo_config(capacity=dict(CAPS, clip_batch=clip_batch),
+                       pipeline_active=STAGES)
+    cfg["preprocessor"]["clip"]["model_name"] = model_name
     clip = ClipWrapper(cfg["preprocessor"]["clip"], dtype=torch.bfloat16,
                        seed=0)
     seen = {"calls": 0, "images": 0}
@@ -1222,13 +1233,13 @@ def check_vit_long_path(ds, vit_kernels):
     launches = vit_kernels.LAUNCHES["fused_attention_proj"]
     cores = dict(vit_kernels.CORE_LAUNCHES)
     want = layers * seen["calls"]
-    if (seen["calls"] <= 0 or launches != want or cores["long"] != want
-            or cores["onepass"] != 0):
+    if (seen["calls"] <= 0 or launches != want
+            or cores != {k: want if k == core else 0 for k in cores}):
         raise AssertionError(
-            f"ViT-L/14@336px on the main path: fused_attention_proj "
-            f"{launches}, cores {cores}, expected {want} long ({layers} "
+            f"{model_name} on the main path: fused_attention_proj "
+            f"{launches}, cores {cores}, expected {want} {core} ({layers} "
             f"layers x {seen['calls']} classify calls)")
-    return {"tower": "ViT-L-14-336px.pt", "image_size": clip.render_size(),
+    return {"tower": model_name, "image_size": clip.render_size(),
             "classify_calls": seen["calls"], "images": seen["images"],
             "launches": launches, "core_launches": cores, "wall_s": wall,
             "classification_s": times.get("classification")}
@@ -1282,7 +1293,7 @@ def attention_split(args, vit_kernels):
     written once), its bound (the larger of the operations over the bf16
     peak and the bytes over the memory rate) and its PyTorch counterpart
     timed alone on the same inputs (``library_ms``: ``F.layer_norm``,
-    ``F.linear``, ``F.scaled_dot_product_attention`` on (B, heads, T, 64)
+    ``F.linear``, ``F.scaled_dot_product_attention`` on (B, heads, T, d)
     views of qkv, ``F.linear`` plus the residual), never called by the
     port."""
     import torch
@@ -1294,7 +1305,8 @@ def attention_split(args, vit_kernels):
     x2 = x.reshape(m, width)
     h = vit_kernels.layernorm_cuda(x2, lns, lnb)
     qkv = vit_kernels.gemm_cuda(h, wq, bq)
-    att = vit_kernels.attention_core_cuda(qkv, b, t, heads)
+    d = width // heads
+    att = vit_kernels.attention_core_cuda(qkv, b, t, heads, d)
     wq_t, wo_t = wq.t().contiguous(), wo.t().contiguous()
     lns16, lnb16 = lns.to(x.dtype), lnb.to(x.dtype)
     q, k, v = qkv.view(b, t, 3, heads, -1).unbind(2)
@@ -1313,7 +1325,7 @@ def attention_split(args, vit_kernels):
                      lambda: F.linear(h, wq_t, bq),
                      2 * m * width * 3 * width, size(h, wq, bq, qkv)),
         "attention_core": (lambda: vit_kernels.attention_core_cuda(
-            qkv, b, t, heads), lambda: F.scaled_dot_product_attention(
+            qkv, b, t, heads, d), lambda: F.scaled_dot_product_attention(
                 q, k, v), 4 * b * t * t * width, size(qkv, att)),
         "out_gemm": (lambda: vit_kernels.gemm_cuda(att, wo, bo, res=x2),
                      lambda: F.linear(att, wo_t, bo) + x2,
@@ -2860,6 +2872,14 @@ def main() -> int:
         row["launches"] = long_path["launches"]
         rows.append(row)
         log("kernel fused_attention_proj at ViT-L/14@336px: "
+            + json.dumps(row))
+        row = check_vit_long(vit_kernels, t=730, width=1280, heads=16)
+        stream_path = check_vit_long_path(
+            ds, vit_kernels, "DFN5B-CLIP-ViT-H-14-378.bin", "stream", 256)
+        log("main path with DFN5B ViT-H/14-378: " + json.dumps(stream_path))
+        row["launches"] = stream_path["launches"]
+        rows.append(row)
+        log("kernel fused_attention_proj at DFN5B ViT-H/14-378: "
             + json.dumps(row))
         # the public ops no stage calls: one main-path frame against the
         # entropy window, and its 8 nearest neighbours in the next frame

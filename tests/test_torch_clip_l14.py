@@ -149,7 +149,8 @@ def test_presets_and_checkpoint_names_give_the_published_sizes(monkeypatch):
     assert C.clip_config_for("ViT-L-14-336px.pt") == C.clip_vit_l14_336()
     assert C.clip_config_for("/ckpt/ViT-B-16.pt", torch.bfloat16) == \
         C.clip_vit_b16(torch.bfloat16)
-    assert set(C.CHECKPOINTS) == {"ViT-B-16.pt", "ViT-L-14-336px.pt"}
+    assert set(C.CHECKPOINTS) == {"ViT-B-16.pt", "ViT-L-14-336px.pt",
+                                  "DFN5B-CLIP-ViT-H-14-378.bin"}
     with pytest.raises(ValueError, match="ViT-B-32.pt"):
         C.clip_config_for("ViT-B-32.pt")
     # the wrapper takes its tower from the configuration's model_name: a

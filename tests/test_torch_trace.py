@@ -414,16 +414,19 @@ def _tower_counts(model_cfg, n_items, n_calls=1):
 
 
 @pytest.mark.parametrize("image,patch,core", [(64, 16, "onepass"),
-                                              (336, 14, "long")])
+                                              (336, 14, "long"),
+                                              (378, 14, "stream")])
 def test_tower_counts_its_images_and_attention_cores(image, patch, core):
     """``classify.tower`` counts the images through the tower (four views
     an item) and, on the CPU path's wrapper, one attention core a layer and
-    a call, by the kind the sequence's length takes on the card: 17 tokens
-    the one-pass core, 577 (ViT-L/14@336px's) the long one."""
+    a call, by the kind the sequence's length and head width take on the
+    card: 17 tokens the one-pass core, 577 (ViT-L/14@336px's) the long one,
+    730 in heads of 80 (DFN5B ViT-H/14-378's) the streaming one."""
     from vilgod_tpu_torch.models import vit_kernels
     from vilgod_tpu_torch.models.clip import CLIPConfig
 
-    cfg = CLIPConfig(image_size=image, patch_size=patch, vision_width=128,
+    width = 160 if core == "stream" else 128       # heads of 80 or of 64
+    cfg = CLIPConfig(image_size=image, patch_size=patch, vision_width=width,
                      vision_layers=2, vision_heads=2, embed_dim=32,
                      text_width=64, text_heads=1, text_layers=1,
                      dtype=torch.bfloat16)
@@ -431,4 +434,5 @@ def test_tower_counts_its_images_and_attention_cores(image, patch, core):
     counts = _tower_counts(cfg, n_items=3, n_calls=2)
     assert counts["classify.tower"] == {"tower_images": 2 * 3 * 4,
                                         f"attn_core.{core}": 2 * 2}
-    assert vit_kernels.CORE_LAUNCHES == {"onepass": 0, "long": 0}
+    assert vit_kernels.CORE_LAUNCHES == {"onepass": 0, "long": 0,
+                                         "stream": 0}

@@ -108,7 +108,8 @@ def test_mlp_plain_matches_pallas(dt):
 
 def test_switches_follow_the_jax_conditions(monkeypatch):
     """The same type, alignment and environment conditions as the JAX
-    switches (without the platform test: the CPU runs the plain version)."""
+    switches (without the platform test: the CPU runs the plain version),
+    but for heads of 80, which the streaming core takes and JAX refuses."""
     for var in ("VILGOD_FUSED_ATTN", "VILGOD_FUSED_MLP_BLOCK",
                 "VILGOD_FUSED_MLP"):
         monkeypatch.delenv(var, raising=False)
@@ -116,10 +117,14 @@ def test_switches_follow_the_jax_conditions(monkeypatch):
     assert VT.use_fused_attention(bf16, 768, 12)
     assert VT.use_fused_attention(bf16, 128, 2)
     assert not VT.use_fused_attention(torch.float32, 768, 12)
+    assert VT.use_fused_attention(bf16, 1280, 16)         # heads of 80
+    assert VT.use_fused_attention(bf16, 160, 2)
+    assert not VT.use_fused_attention(torch.float32, 1280, 16)
     assert not VT.use_fused_attention(bf16, 512, 16)      # head dim 32
     assert not VT.use_fused_attention(bf16, 64, 1)        # width % 128
     monkeypatch.setenv("VILGOD_FUSED_ATTN", "0")
     assert not VT.use_fused_attention(bf16, 768, 12)
+    assert not VT.use_fused_attention(bf16, 1280, 16)
     for fn, var in ((VT.use_fused_mlp_block, "VILGOD_FUSED_MLP_BLOCK"),
                     (VT.use_fused_mlp, "VILGOD_FUSED_MLP")):
         assert not fn(bf16, 768)                           # opt-in

@@ -1,7 +1,9 @@
 """CLIP in PyTorch, the zero-shot classifier backbone; the port of
-``vilgod_tpu/models/clip.py``. One module set runs every OpenAI ViT tower
-at its published sizes: ViT-B/16 (:func:`clip_vit_b16`, the default) and
-ViT-L/14@336px (:func:`clip_vit_l14_336`), chosen by checkpoint name through
+``vilgod_tpu/models/clip.py``. One module set runs every CLIP tower of
+OpenAI's block equations at its published sizes: ViT-B/16
+(:func:`clip_vit_b16`, the default), ViT-L/14@336px
+(:func:`clip_vit_l14_336`) and Apple's DFN5B ViT-H/14-378
+(:func:`clip_vit_h14_378`, heads of 80), chosen by checkpoint name through
 :data:`CHECKPOINTS` (:func:`clip_config_for`).
 
 The modules mirror the flax modules one for one and hold their weights
@@ -68,17 +70,34 @@ def clip_vit_l14_336(dtype=torch.float32) -> CLIPConfig:
                       text_heads=12, text_layers=12, dtype=dtype)
 
 
-# OpenAI's checkpoint file names (openai/CLIP clip/clip.py ``_MODELS``) ->
-# the tower each holds
+def clip_vit_h14_378(dtype=torch.float32) -> CLIPConfig:
+    """Apple's DFN5B-CLIP-ViT-H-14-378 (Fang et al., "Data Filtering
+    Networks", arXiv 2309.17425; open_clip ``model_configs/
+    ViT-H-14-378-quickgelu.json``, pretrained tag ``dfn5b``): 378 px, patch
+    14 (730 tokens), width 1280, 32 layers of 16 heads of 80, MLP 5120,
+    QuickGELU; embedding 1024; text context 77, vocabulary 49408, width
+    1024, 16 heads, 24 layers. OpenAI's block equations: pre-LN, class
+    token, ``ln_pre``, a causal text tower pooled at end-of-text."""
+    return CLIPConfig(image_size=378, patch_size=14, vision_width=1280,
+                      vision_layers=32, vision_heads=16, embed_dim=1024,
+                      context_length=77, vocab_size=49408, text_width=1024,
+                      text_heads=16, text_layers=24, dtype=dtype)
+
+
+# checkpoint file names -> the tower each holds: OpenAI's (openai/CLIP
+# clip/clip.py ``_MODELS``), and the open_clip weights of Hugging Face's
+# ``apple/DFN5B-CLIP-ViT-H-14-378`` (its ``open_clip_pytorch_model.bin``)
+# saved under the repository's name; open_clip keeps OpenAI's state-dict names
 CHECKPOINTS = {
     "ViT-B-16.pt": clip_vit_b16,
     "ViT-L-14-336px.pt": clip_vit_l14_336,
+    "DFN5B-CLIP-ViT-H-14-378.bin": clip_vit_h14_378,
 }
 
 
 def clip_config_for(model_name: str, dtype=torch.float32) -> CLIPConfig:
-    """The tower of the OpenAI checkpoint ``model_name`` (a file name, or a
-    path ending in one) in ``dtype``."""
+    """The tower of the checkpoint ``model_name`` (a file name of
+    :data:`CHECKPOINTS`, or a path ending in one) in ``dtype``."""
     name = Path(model_name).name
     if name not in CHECKPOINTS:
         raise ValueError(f"no tower for checkpoint {model_name!r}; known: "
@@ -386,13 +405,14 @@ def normalize_images(images_rgb01: torch.Tensor) -> torch.Tensor:
 
 def convert_openai_checkpoint(path: str, cfg: CLIPConfig | None = None,
                               device=None) -> CLIPModel:
-    """An OpenAI CLIP checkpoint (TorchScript archive or plain state_dict)
-    mapped onto the port's modules on ``device`` (``cuda`` unless given),
-    through the flax tree's names and layouts (``in_proj_weight.T`` ->
-    ``qkv/kernel``, the conv weight (O, I, kh, kw) -> (kh, kw, I, O)).
-    Without ``cfg`` the tower is the one that :data:`CHECKPOINTS` names for
-    the file's name (:func:`clip_config_for`), which then has to be one of
-    OpenAI's."""
+    """A CLIP checkpoint under OpenAI's state-dict names (OpenAI's
+    TorchScript archive or plain state_dict, or open_clip's state_dict of
+    the same names) mapped onto the port's modules on ``device`` (``cuda``
+    unless given), through the flax tree's names and layouts
+    (``in_proj_weight.T`` -> ``qkv/kernel``, the conv weight (O, I, kh, kw)
+    -> (kh, kw, I, O)). Without ``cfg`` the tower is the one that
+    :data:`CHECKPOINTS` names for the file's name
+    (:func:`clip_config_for`), which then has to be one of its names."""
     cfg = cfg or clip_config_for(path)
     try:
         sd = torch.jit.load(path, map_location="cpu").state_dict()

@@ -10,9 +10,10 @@ the transform to the ego frame and the 4-view rendering; only the (B, V)
 class indices and scores leave the device.
 
 The tower is the one that the checkpoint's file name, or else the
-configuration's ``model_name``, names (``clip.CHECKPOINTS``: ViT-B/16 or
-ViT-L/14@336px) unless a ``model_cfg`` is given; it runs in bfloat16 by default, its attention halves through the
-CUDA kernel of ``csrc/vit.cu`` on the card. Views are rendered at the
+configuration's ``model_name``, names (``clip.CHECKPOINTS``: ViT-B/16,
+ViT-L/14@336px or DFN5B ViT-H/14-378) unless a ``model_cfg`` is given; it
+runs in bfloat16 by default, its attention halves through the CUDA kernel
+of ``csrc/vit.cu`` on the card. Views are rendered at the
 tower's own image size.
 """
 from __future__ import annotations

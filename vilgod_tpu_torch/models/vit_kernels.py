@@ -21,10 +21,12 @@ after the LayerNorm, after each bias, after quickGELU, after each head's
 ``w @ v``) and multiply the bf16 operands in f32 with TF32 off, so kernel
 and plain version differ only in summation order. ``LAUNCHES`` counts
 wrapper calls that launched their kernels, ``CORE_LAUNCHES`` the attention
-core's launches by core ("onepass" up to ``ONE_PASS_TOKENS``, "long" up to
-``MAX_TOKENS``). Inside a recording (``utils/trace``) each attention half
-also counts ``attn_core.onepass`` or ``attn_core.long``, on either path:
-on the CPU the core its length would take on the card.
+core's launches by core: at heads of 64 "onepass" up to ``ONE_PASS_TOKENS``
+and "long" up to ``MAX_TOKENS``, at heads of 80 "stream" up to
+``STREAM_MAX_TOKENS``. Inside a recording (``utils/trace``) each attention
+half also counts ``attn_core.onepass``, ``attn_core.long`` or
+``attn_core.stream``, on either path: on the CPU the core its head width and
+length would take on the card.
 """
 from __future__ import annotations
 
@@ -39,9 +41,10 @@ from ..utils.cuda_build import CudaLibrary, launch, stream_of
 
 KERNEL_NAMES = ("fused_attention_proj", "fused_mlp_block", "fused_mlp")
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
-CORE_LAUNCHES = {"onepass": 0, "long": 0}
+CORE_LAUNCHES = {"onepass": 0, "long": 0, "stream": 0}
 LN_EPS = 1e-5
-HEAD_DIM = 64  # the CUDA attention core's head width
+HEAD_DIM = 64  # the one-pass and long cores' head width
+STREAM_HEAD_DIM = 80  # the streaming core's (vit.cu kStreamHD)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary("vit.cu", {
@@ -151,13 +154,17 @@ def _check(name, device, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
-MAX_TOKENS = 592  # the attention core's longest sequence (vit.cu kMaxT)
+MAX_TOKENS = 592  # the long core's longest sequence (vit.cu kMaxT)
 ONE_PASS_TOKENS = 208  # the one-pass core's longest (vit.cu kOnePassTiles)
+STREAM_MAX_TOKENS = 1040  # the streaming core's longest (vit.cu kStreamMaxT)
 MAX_LN_WIDTH = 2048  # the LayerNorm pass holds a row in registers (kLnMaxVecs)
 
 
-def attention_core_kind(t: int) -> str:
-    """The core that takes ``t`` tokens: "onepass" or "long"."""
+def attention_core_kind(t: int, d: int) -> str:
+    """The core that takes ``t`` tokens in heads of ``d``: "stream" at
+    heads of 80, else "onepass" or "long"."""
+    if d == STREAM_HEAD_DIM:
+        return "stream"
     return "onepass" if t <= ONE_PASS_TOKENS else "long"
 
 
@@ -195,9 +202,10 @@ def gemm_cuda(a, w, bias, res=None, gelu=False):
     return c
 
 
-def attention_core_cuda(qkv, b, t, heads):
-    """softmax(q k^T / 8) v per (image, head) over qkv (B*T, 3W) bf16 ->
-    (B*T, W) (one launch, counted in ``CORE_LAUNCHES``). The one-pass core
+def attention_core_cuda(qkv, b, t, heads, d):
+    """softmax(q k^T / sqrt(d)) v per (image, head) over qkv (B*T, 3W) bf16
+    in heads of ``d`` -> (B*T, W) (one launch, counted in
+    ``CORE_LAUNCHES``). At heads of 64 the one-pass core
     takes T <= ``ONE_PASS_TOKENS`` (ViT-B/16's 197: every logit of a warp's
     16 rows in registers); the long core 208 < T <= ``MAX_TOKENS``
     (ViT-L/14's 257, ViT-L/14@336px's 577) stages the head's K and V whole
@@ -205,12 +213,15 @@ def attention_core_cuda(qkv, b, t, heads):
     each holding the logits of its half of the keys, so the softmax stays
     exact with one q . k. At 577 tokens the core's 1.36 GFLOP and 4.73 MB
     an image (all heads) balance on the H100: 1.38 against 1.41 us at the
-    peaks."""
-    width = heads * HEAD_DIM
+    peaks. At heads of 80 the streaming core takes T <= ``STREAM_MAX_TOKENS``
+    (DFN5B ViT-H/14-378's 730, whose K and V no longer fit a block's shared
+    memory): K and V pass through a ring of 64-key tiles and the softmax is
+    online, the weights rounded to bf16 before their normalisation."""
+    width = heads * d
     att = torch.empty((b * t, width), dtype=torch.bfloat16, device=qkv.device)
     launch(LIBRARY.load().vit_attention, qkv.data_ptr(), att.data_ptr(), b, t,
-           width, heads, 1.0 / math.sqrt(HEAD_DIM), stream_of(qkv.device))
-    CORE_LAUNCHES[attention_core_kind(t)] += 1
+           width, heads, 1.0 / math.sqrt(d), stream_of(qkv.device))
+    CORE_LAUNCHES[attention_core_kind(t, d)] += 1
     return att
 
 
@@ -223,16 +234,19 @@ def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     if w_qkv.shape != (width, 3 * width) or w_out.shape != (width, width):
         raise ValueError(f"{name}: weights {tuple(w_qkv.shape)}, "
                          f"{tuple(w_out.shape)} do not fit width {width}")
-    trace.count(f"attn_core.{attention_core_kind(t)}")
+    d = width // heads
+    trace.count(f"attn_core.{attention_core_kind(t, d)}")
     if not x.is_cuda:
         return attention_proj_plain(x, ln_scale, ln_bias, w_qkv, b_qkv,
                                     w_out, b_out, heads)
-    if width != heads * HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA attention core takes heads of "
-                         f"{HEAD_DIM}, got width {width} over {heads} heads")
-    if t > MAX_TOKENS:
+    if width != heads * d or d not in (HEAD_DIM, STREAM_HEAD_DIM):
+        raise ValueError(f"{name}: the CUDA attention cores take heads of "
+                         f"{HEAD_DIM} or {STREAM_HEAD_DIM}, got width {width} "
+                         f"over {heads} heads")
+    limit = STREAM_MAX_TOKENS if d == STREAM_HEAD_DIM else MAX_TOKENS
+    if t > limit:
         raise ValueError(f"{name}: the CUDA attention core takes at most "
-                         f"{MAX_TOKENS} tokens, got {t}")
+                         f"{limit} tokens at heads of {d}, got {t}")
     _check(name, x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias,
            w_qkv=w_qkv, b_qkv=b_qkv, w_out=w_out, b_out=b_out)
     m = b * t
@@ -240,7 +254,7 @@ def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     with torch.cuda.device(x.device):
         x2 = x.reshape(m, width)
         qkv = gemm_cuda(layernorm_cuda(x2, ln_scale, ln_bias), w_qkv, b_qkv)
-        att = attention_core_cuda(qkv, b, t, heads)
+        att = attention_core_cuda(qkv, b, t, heads, d)
         out = gemm_cuda(att, w_out, b_out, res=x2)
     LAUNCHES[name] += 1
     return out.reshape(b, t, width)
@@ -291,12 +305,14 @@ def fused_mlp(x, w_fc, b_fc, w_proj, b_proj):
 # ---------------------------------------------------------------------------
 
 def use_fused_attention(dtype, width: int, heads: int) -> bool:
-    """On for a bf16 tower with 64-aligned heads (``VILGOD_FUSED_ATTN=0``
-    turns it off)."""
-    if os.environ.get("VILGOD_FUSED_ATTN") == "0":
+    """On for a bf16 tower with 64-aligned heads (JAX's condition), or
+    with heads of 80, which the streaming core takes and JAX's switch
+    refuses (``VILGOD_FUSED_ATTN=0`` turns it off)."""
+    if os.environ.get("VILGOD_FUSED_ATTN") == "0" or dtype != torch.bfloat16:
         return False
-    return not (dtype != torch.bfloat16 or (width // heads) % 64
-                or width % 128)
+    if width == heads * STREAM_HEAD_DIM:
+        return True
+    return not ((width // heads) % 64 or width % 128)
 
 
 def use_fused_mlp_block(dtype, width: int) -> bool:

@@ -180,11 +180,12 @@ def run(variant: str) -> dict:
     m = x2.shape[0]
     h = VK.layernorm_cuda(x2, *ln)
     qkv = VK.gemm_cuda(h, attn_w[0], attn_w[1])
-    att = VK.attention_core_cuda(qkv, 2048, 197, 12)
+    att = VK.attention_core_cuda(qkv, 2048, 197, 12, 64)
     parts = {
         "layernorm": (lambda: VK.layernorm_cuda(x2, *ln), 0),
         "qkv_gemm": (lambda: VK.gemm_cuda(h, attn_w[0], attn_w[1]), 6 * m * w * w),
-        "attention_core": (lambda: VK.attention_core_cuda(qkv, 2048, 197, 12),
+        "attention_core": (lambda: VK.attention_core_cuda(qkv, 2048, 197,
+                                                          12, 64),
                            4 * 2048 * 197 * 197 * w),
         "out_gemm": (lambda: VK.gemm_cuda(att, attn_w[2], attn_w[3], res=x2),
                      2 * m * w * w),
