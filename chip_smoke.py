@@ -27,12 +27,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``ClipWrapper`` in bf16 (random weights from seed 0), each stage's
    seconds printed. Launch counts are zeroed just before and read just
    after; every kernel of the path must have launched,
-   ``fused_attention_proj`` once per vision layer and classify call,
+   ``fused_attention_proj`` and ``fused_mlp_block`` (kernel 10, on by
+   default for a bf16 tower) each once per vision layer and classify call,
    ``ransac_gumbel_top3`` twice a frame (the filter's two RANSAC stages),
    ``select_keep`` once a clustering chunk. Then
-   the opt-in MLP kernels: one classify batch of this run through the tower
-   with ``VILGOD_FUSED_MLP_BLOCK=1`` and with ``VILGOD_FUSED_MLP=1``; each
-   must launch. Then the nine stages once more under ``torch.profiler``:
+   one classify batch of this run through the tower with the unfused MLP
+   half (``VILGOD_FUSED_MLP_BLOCK=0``) and with the opt-in kernel 11
+   (``VILGOD_FUSED_MLP=1`` beside ``VILGOD_FUSED_MLP_BLOCK=0``), which must
+   launch once a layer, each one's cosine to the default tower printed. Then the nine stages once more under ``torch.profiler``:
    the card's busy share and the banded kernels' device time per launch.
    Then a geometry-only pass (no CLIP model): stages 1-4, their
    checkpoint kept, and the nine stages resumed from it, scored with the
@@ -168,7 +170,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    core counted (every layer of every call the long core), and at DFN5B
    ViT-H/14-378's x (2048, 730, 1280), 16 heads of 80 (the streaming core)
    and its tail batch, the same way, and the nine stages with that tower at
-   ``clip_batch`` 256 (every layer of every call the streaming core)
+   ``clip_batch`` 256 (every layer of every call the streaming core; both
+   large towers' runs also launch kernel 10 once a layer and call); kernel
+   10 at both large towers' MLP shapes, x (2048 x 577, 1024) and (1024 x
+   730, 1280), every row held to the plain version, timed beside its bound,
+   the plain version and PyTorch's composite, with a line that splits it
+   into its LayerNorm pass, QuickGELU GEMM and residual GEMM, and times the
+   plain-epilogue GEMM instance on the QuickGELU GEMM's arguments
+   (``gelu_over_plain``: what the QuickGELU epilogue still costs)
    (assert_close
    rtol 1.6e-2, atol 1e-2, mean |diff| < 1e-3), with a line that splits
    ``fused_attention_proj`` into its LayerNorm pass, qkv GEMM, attention
@@ -297,8 +306,11 @@ REPLACES = {
     "tile_nearest": "vilgod_tpu/ops/pallas_kernels.py:531",
     "tile_min_label_qd": "vilgod_tpu/ops/pallas_kernels.py:241",
 }
-OPT_IN = {"fused_mlp_block": "VILGOD_FUSED_MLP_BLOCK",
-          "fused_mlp": "VILGOD_FUSED_MLP"}
+# the tower's MLP half off its default (kernel 10): the unfused composite,
+# and kernel 11 (opt-in), which only the composite's path takes
+MLP_SWITCHES = {
+    "composite": {"VILGOD_FUSED_MLP_BLOCK": "0"},
+    "fused_mlp": {"VILGOD_FUSED_MLP_BLOCK": "0", "VILGOD_FUSED_MLP": "1"}}
 # float32 operations per (query, window point) pair: (q - d) and its square
 # per coordinate, the coordinate sums, then each kernel's epilogue
 EPILOGUE_OPS = {"banded_tile_count": 1, "banded_tile_count3": 3,
@@ -1224,6 +1236,7 @@ def check_vit_long_path(ds, vit_kernels, model_name="ViT-L-14-336px.pt",
         return encode(x)
     clip.model.encode_image = counted
     vit_kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     times = {}
     t0 = time.perf_counter()
     run_sequences(ds, cfg, clip_model=clip, stage_times=times, device="cuda")
@@ -1231,18 +1244,128 @@ def check_vit_long_path(ds, vit_kernels, model_name="ViT-L-14-336px.pt",
     wall = time.perf_counter() - t0
     layers = clip.model_cfg.vision_layers
     launches = vit_kernels.LAUNCHES["fused_attention_proj"]
+    mlp = vit_kernels.LAUNCHES["fused_mlp_block"]
     cores = dict(vit_kernels.CORE_LAUNCHES)
     want = layers * seen["calls"]
-    if (seen["calls"] <= 0 or launches != want
+    if (seen["calls"] <= 0 or launches != want or mlp != want
             or cores != {k: want if k == core else 0 for k in cores}):
         raise AssertionError(
             f"{model_name} on the main path: fused_attention_proj "
-            f"{launches}, cores {cores}, expected {want} {core} ({layers} "
-            f"layers x {seen['calls']} classify calls)")
+            f"{launches}, fused_mlp_block {mlp}, cores {cores}, expected "
+            f"{want} each and {core} ({layers} layers x {seen['calls']} "
+            f"classify calls)")
     return {"tower": model_name, "image_size": clip.render_size(),
             "classify_calls": seen["calls"], "images": seen["images"],
-            "launches": launches, "core_launches": cores, "wall_s": wall,
-            "classification_s": times.get("classification")}
+            "launches": launches, "mlp_launches": mlp,
+            "core_launches": cores, "wall_s": wall,
+            "classification_s": times.get("classification"),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def vit_mlp_args(device, rows, width, seed=0):
+    """``fused_mlp_block``'s arguments at a tower's MLP: x (rows, width)
+    bf16 (0.5 x unit normal) and one layer's weights drawn from ``seed``
+    (LeCun-normal products, small biases, LayerNorm scales about 1)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0, offset=0.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device=device, generator=gen)
+                .mul_(scale).add_(offset).to(dtype).contiguous())
+
+    return (draw(rows, width, scale=0.5),
+            draw(width, scale=0.1, offset=1.0, dtype=torch.float32),
+            draw(width, scale=0.05, dtype=torch.float32),
+            draw(width, 4 * width, scale=width ** -0.5),
+            draw(4 * width, scale=0.01),
+            draw(4 * width, width, scale=(4 * width) ** -0.5),
+            draw(width, scale=0.01))
+
+
+def mlp_split(args, vit_kernels):
+    """``fused_mlp_block`` on ``args`` by part, each timed alone (ms) with
+    its TFLOP/s and bound (the larger of the operations over the bf16 peak
+    and each input and output once over the memory rate): the LayerNorm
+    pass, the QuickGELU GEMM, the residual GEMM, and the plain-epilogue
+    GEMM instance on the QuickGELU GEMM's arguments; ``gelu_over_plain``
+    is the QuickGELU GEMM's time over that instance's."""
+    x, lns, lnb, wf, bf, wp, bp = args
+    m, width = x.shape
+    h = vit_kernels.layernorm_cuda(x, lns, lnb)
+    g = vit_kernels.gemm_cuda(h, wf, bf, gelu=True)
+    fc_ops, fc_bytes = 8 * m * width * width, 2 * (5 * m * width + 4 * width * width)
+    parts = {
+        "layernorm": (lambda: vit_kernels.layernorm_cuda(x, lns, lnb), 0,
+                      4 * m * width),
+        "gelu_gemm": (lambda: vit_kernels.gemm_cuda(h, wf, bf, gelu=True),
+                      fc_ops, fc_bytes),
+        "plain_epilogue_gemm": (lambda: vit_kernels.gemm_cuda(h, wf, bf),
+                                fc_ops, fc_bytes),
+        "residual_gemm": (lambda: vit_kernels.gemm_cuda(g, wp, bp, res=x),
+                          fc_ops, 2 * (6 * m * width + 4 * width * width)),
+    }
+    out = {}
+    for part, (fn, ops, nbytes) in parts.items():
+        ms = cuda_ms(fn, 3)
+        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        out[part] = {"ms": ms, "tflop_per_s": ops / ms / 1e9,
+                     "bound_ms": bound}
+    out["gelu_over_plain"] = (out["gelu_gemm"]["ms"]
+                              / out["plain_epilogue_gemm"]["ms"])
+    return out
+
+
+def check_vit_mlp(vit_kernels, images, t, width, chunk=65536):
+    """``fused_mlp_block`` (kernel 10) at a large tower's MLP, x (images x
+    t, width) bf16: its whole output held to the plain version over chunks
+    of ``chunk`` rows (assert_close rtol 1.6e-2, atol 1e-2, mean |diff| <
+    1e-3 over the call); kernel, plain, torch-composite and bound times,
+    and the by-part line (``mlp_split``)."""
+    import torch
+
+    name = "fused_mlp_block"
+    kernel = getattr(vit_kernels, name)
+    kernel = getattr(kernel, "wrapped", kernel)
+    plain = vit_kernels.PLAIN[name]
+    args = vit_mlp_args("cuda", images * t, width)
+    x, rows = args[0], args[0].shape[0]
+    got = kernel(*args)
+    err, total = 0.0, 0.0
+    for i in range(0, rows, chunk):
+        want = plain(x[i:i + chunk], *args[1:])
+        diff = (got[i:i + chunk].float() - want.float()).abs()
+        torch.testing.assert_close(got[i:i + chunk].float(), want.float(),
+                                   rtol=1.6e-2, atol=1e-2)
+        err, total = max(err, float(diff.max())), total + float(diff.sum())
+        del want, diff
+    mean_err = total / got.numel()
+    if mean_err >= 1e-3:
+        raise AssertionError(f"{name}: mean |kernel - plain| {mean_err} at "
+                             f"{images} images of {t} tokens")
+    del got
+    split = mlp_split(args, vit_kernels)
+    ms = cuda_ms(lambda: kernel(*args), 3)
+
+    def plain_all():
+        for i in range(0, rows, chunk):
+            plain(x[i:i + chunk], *args[1:])
+    plain_ms = cuda_ms(plain_all, 1)
+    torch.cuda.empty_cache()
+    composite = vit_composite(name, args)
+    composite()
+    library_ms = cuda_ms(composite, 3)
+    bound_ms, bound_by, gflop = vit_bound(name, args)
+    del composite
+    torch.cuda.empty_cache()
+    return {"name": name, "route": "cuda",
+            "source": "vilgod_tpu_torch/csrc/vit.cu",
+            "replaces": REPLACES[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": {"x": list(x.shape), "images": images, "tokens": t,
+                      "gflop": gflop, "mean_abs_err": mean_err},
+            "by_part": split}
 
 
 def check_vit_kernel(name, args, vit_kernels):
@@ -2659,12 +2782,12 @@ def main() -> int:
             if launches[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")
         want = n_layers * vit_rec.encode_calls
-        if vit_rec.encode_calls <= 0 or launches["fused_attention_proj"] != want:
-            raise AssertionError(
-                f"fused_attention_proj launched "
-                f"{launches['fused_attention_proj']} times on the main path, "
-                f"expected {want} ({n_layers} layers x {vit_rec.encode_calls} "
-                f"classify calls)")
+        for name in ("fused_attention_proj", "fused_mlp_block"):
+            if vit_rec.encode_calls <= 0 or launches[name] != want:
+                raise AssertionError(
+                    f"{name} launched {launches[name]} times on the main "
+                    f"path, expected {want} ({n_layers} layers x "
+                    f"{vit_rec.encode_calls} classify calls)")
         if launches["ransac_gumbel_top3"] != 2 * n_frames:
             raise AssertionError(
                 f"ransac_gumbel_top3 launched "
@@ -2691,27 +2814,34 @@ def main() -> int:
         log("classes on the main path: " + json.dumps(
             np.bincount(st.det_cls[valid], minlength=4).tolist()))
 
-        # the opt-in MLP kernels: one classify batch of the main path
-        # through the tower with each switch
+        # the MLP half off its default: one classify batch of the main path
+        # through the unfused composite and through kernel 11
         x = vit_rec.tower_input
         base = clip_model.model.encode_image(x).float()
-        for name, var in OPT_IN.items():
+        for name, env in MLP_SWITCHES.items():
             vit_kernels.reset_launches()
-            os.environ[var] = "1"
+            os.environ.update(env)
             vit_rec.active = True
             try:
                 out = clip_model.model.encode_image(x).float()
                 torch.cuda.synchronize()
             finally:
                 vit_rec.active = False
-                del os.environ[var]
-            launches[name] = vit_kernels.LAUNCHES[name]
+                for var in env:
+                    del os.environ[var]
             cos = float(torch.nn.functional.cosine_similarity(out, base).min())
-            log(f"{var}=1 on {x.shape[0]} images: {launches[name]} launches "
-                f"of {name}, min cosine to the default tower {cos:.6f}")
-            if launches[name] != n_layers:
-                raise AssertionError(f"{name}: {launches[name]} launches with "
-                                     f"{var}=1, expected {n_layers}")
+            log(f"{env} on {x.shape[0]} images: launches "
+                f"{dict(vit_kernels.LAUNCHES)}, min cosine to the default "
+                f"tower {cos:.6f}")
+            if vit_kernels.LAUNCHES["fused_mlp_block"] != 0 or (
+                    name == "fused_mlp"
+                    and vit_kernels.LAUNCHES[name] != n_layers):
+                raise AssertionError(f"{env}: launches "
+                                     f"{dict(vit_kernels.LAUNCHES)}, expected "
+                                     f"no fused_mlp_block and {n_layers} "
+                                     f"fused_mlp with kernel 11 on")
+            if name == "fused_mlp":
+                launches[name] = vit_kernels.LAUNCHES[name]
         del x, base, out
         vit_rec.tower_input = None
 
@@ -2881,6 +3011,13 @@ def main() -> int:
         rows.append(row)
         log("kernel fused_attention_proj at DFN5B ViT-H/14-378: "
             + json.dumps(row))
+        for images, t, width, path in ((2048, 577, 1024, long_path),
+                                       (1024, 730, 1280, stream_path)):
+            row = check_vit_mlp(vit_kernels, images, t, width)
+            row["launches"] = path["mlp_launches"]
+            rows.append(row)
+            log(f"kernel fused_mlp_block at {path['tower']}: "
+                + json.dumps(row))
         # the public ops no stage calls: one main-path frame against the
         # entropy window, and its 8 nearest neighbours in the next frame
         log("entropy_scores_window card vs CPU: " + json.dumps(

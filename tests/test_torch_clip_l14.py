@@ -17,6 +17,7 @@ from benchmark.weights import make_weights
 from vilgod_tpu_torch.config import waymo_config
 from vilgod_tpu_torch.models import clip as C
 from vilgod_tpu_torch.models.clip_wrapper import ClipWrapper
+from vilgod_tpu_torch.utils import trace
 
 TINY = dict(image_size=336, patch_size=14, vision_width=128, vision_layers=2,
             vision_heads=2, embed_dim=64, context_length=77,
@@ -83,6 +84,35 @@ def test_tiny_577_token_tower_matches_the_reference(dt):
             assert float(_cosine(got, want).min()) >= 0.9995
             scale = float(want.abs().max())
             assert float((got - want).abs().max()) <= 0.03 * scale
+
+
+@pytest.mark.parametrize("mlp", ["fused", "composite"])
+def test_bf16_tower_runs_its_mlp_half_through_kernel_10(mlp, monkeypatch):
+    """Width 128 is 128-aligned, so by default each layer's MLP half of a
+    bf16 tower takes ``fused_mlp_block`` (kernel 10; its plain version on
+    the CPU, the card's rounding points) and counts ``mlp_half.fused``
+    once a layer and image call; ``VILGOD_FUSED_MLP_BLOCK=0`` takes the
+    unfused composite and counts none. Either way the image features hold
+    to the plain float32 reference at the large towers' tolerance (cosine
+    0.9995, 3 % of the largest magnitude), and no launch is counted."""
+    from vilgod_tpu_torch.models import vit_kernels as VK
+
+    if mlp == "composite":
+        monkeypatch.setenv("VILGOD_FUSED_MLP_BLOCK", "0")
+    model = _port(torch.bfloat16)
+    w = make_weights(TINY, SEED, "cpu")
+    images = _images(n=2, seed=4)
+    VK.reset_launches()
+    with trace.recording() as t, torch.no_grad():
+        got = model.encode_image(images).float()
+        model.encode_image(images[:1])
+    want = ref_clip.encode_image(w, images.permute(0, 3, 1, 2), TINY)
+    layers = TINY["vision_layers"]
+    assert t.total("mlp_half.fused") == (2 * layers if mlp == "fused" else 0)
+    assert t.total("attn_core.long") == 2 * layers
+    assert VK.LAUNCHES["fused_mlp_block"] == 0
+    assert float(_cosine(got, want).min()) >= 0.9995
+    assert float((got - want).abs().max()) <= 0.03 * float(want.abs().max())
 
 
 def _state(n_frames=2, n_clusters=4, cap=8):

@@ -421,7 +421,9 @@ def test_tower_counts_its_images_and_attention_cores(image, patch, core):
     an item) and, on the CPU path's wrapper, one attention core a layer and
     a call, by the kind the sequence's length and head width take on the
     card: 17 tokens the one-pass core, 577 (ViT-L/14@336px's) the long one,
-    730 in heads of 80 (DFN5B ViT-H/14-378's) the streaming one."""
+    730 in heads of 80 (DFN5B ViT-H/14-378's) the streaming one; and at the
+    128-aligned width one ``mlp_half.fused`` a layer and a call (width 160
+    is not aligned: the unfused MLP half)."""
     from vilgod_tpu_torch.models import vit_kernels
     from vilgod_tpu_torch.models.clip import CLIPConfig
 
@@ -432,7 +434,8 @@ def test_tower_counts_its_images_and_attention_cores(image, patch, core):
                      dtype=torch.bfloat16)
     vit_kernels.reset_launches()
     counts = _tower_counts(cfg, n_items=3, n_calls=2)
+    mlp = {} if width % 128 else {"mlp_half.fused": 2 * 2}
     assert counts["classify.tower"] == {"tower_images": 2 * 3 * 4,
-                                        f"attn_core.{core}": 2 * 2}
+                                        f"attn_core.{core}": 2 * 2, **mlp}
     assert vit_kernels.CORE_LAUNCHES == {"onepass": 0, "long": 0,
                                          "stream": 0}

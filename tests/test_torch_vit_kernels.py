@@ -107,9 +107,11 @@ def test_mlp_plain_matches_pallas(dt):
 
 
 def test_switches_follow_the_jax_conditions(monkeypatch):
-    """The same type, alignment and environment conditions as the JAX
-    switches (without the platform test: the CPU runs the plain version),
-    but for heads of 80, which the streaming core takes and JAX refuses."""
+    """The same type and alignment conditions as the JAX switches (without
+    the platform test: the CPU runs the plain version), but for heads of
+    80, which the streaming core takes and JAX refuses, and for kernel 10,
+    on by default for a bf16 tower (``VILGOD_FUSED_MLP_BLOCK=0`` turns it
+    off) where JAX's is opt-in. Kernel 11 stays opt-in."""
     for var in ("VILGOD_FUSED_ATTN", "VILGOD_FUSED_MLP_BLOCK",
                 "VILGOD_FUSED_MLP"):
         monkeypatch.delenv(var, raising=False)
@@ -125,12 +127,21 @@ def test_switches_follow_the_jax_conditions(monkeypatch):
     monkeypatch.setenv("VILGOD_FUSED_ATTN", "0")
     assert not VT.use_fused_attention(bf16, 768, 12)
     assert not VT.use_fused_attention(bf16, 1280, 16)
-    for fn, var in ((VT.use_fused_mlp_block, "VILGOD_FUSED_MLP_BLOCK"),
-                    (VT.use_fused_mlp, "VILGOD_FUSED_MLP")):
-        assert not fn(bf16, 768)                           # opt-in
-        monkeypatch.setenv(var, "1")
-        assert fn(bf16, 768) and not fn(torch.float32, 768)
-        assert not fn(bf16, 64)
+    for width in (768, 1024, 1280):          # B/16, L/14@336px, H/14-378
+        assert VT.use_fused_mlp_block(bf16, width)
+        assert not VT.use_fused_mlp_block(torch.float32, width)
+    assert not VT.use_fused_mlp_block(bf16, 64)            # width % 128
+    assert not VT.use_fused_mlp_block(bf16, 160)
+    monkeypatch.setenv("VILGOD_FUSED_MLP_BLOCK", "1")
+    assert VT.use_fused_mlp_block(bf16, 1280)
+    monkeypatch.setenv("VILGOD_FUSED_MLP_BLOCK", "0")
+    for width in (768, 1024, 1280):
+        assert not VT.use_fused_mlp_block(bf16, width)
+    assert not VT.use_fused_mlp(bf16, 768)                 # opt-in
+    monkeypatch.setenv("VILGOD_FUSED_MLP", "1")
+    assert VT.use_fused_mlp(bf16, 768)
+    assert not VT.use_fused_mlp(torch.float32, 768)
+    assert not VT.use_fused_mlp(bf16, 64)
 
 
 @pytest.mark.parametrize("variant", sorted(vit_variants.VARIANTS))

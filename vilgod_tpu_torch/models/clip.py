@@ -14,11 +14,13 @@ the same function. Weights are stored in float32 and cast to the model
 dtype where they are used, as flax does.
 
 A bf16 tower runs the attention half of each layer through
-:func:`vit_kernels.fused_attention_proj` (a CUDA kernel on the card, its
-plain version on the CPU); the MLP half takes the fused kernels only when
-their switches are set. The text tower (causal mask) and every non-bf16
-tower take the unfused path, as in JAX. QuickGELU is ``x * sigmoid(1.702
-x)`` (OpenAI CLIP's), not the standard GELU.
+:func:`vit_kernels.fused_attention_proj` and, at a 128-aligned width, the
+MLP half through :func:`vit_kernels.fused_mlp_block` (CUDA kernels on the
+card, their plain versions on the CPU; ``VILGOD_FUSED_MLP_BLOCK=0`` and
+``VILGOD_FUSED_ATTN=0`` turn them off). The text tower's attention (causal
+mask) and every non-bf16 tower take the unfused path, as in JAX.
+QuickGELU is ``x * sigmoid(1.702 x)`` (OpenAI CLIP's), not the standard
+GELU.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ Three functions of a ViT residual block, each one kernel on the TPU:
 - :func:`fused_attention_proj`: ``x + out(MHA(qkv(LN(x))))`` over
   (B, T, W), the attention half (on by default for a bf16 tower);
 - :func:`fused_mlp_block`: ``x + proj(quickGELU(fc(LN(x))))`` over (M, W),
-  the MLP half (opt-in, ``VILGOD_FUSED_MLP_BLOCK=1``);
+  the MLP half (on by default for a bf16 tower);
 - :func:`fused_mlp`: ``proj(quickGELU(fc(x)))`` (opt-in,
   ``VILGOD_FUSED_MLP=1``).
 
@@ -26,7 +26,7 @@ and "long" up to ``MAX_TOKENS``, at heads of 80 "stream" up to
 ``STREAM_MAX_TOKENS``. Inside a recording (``utils/trace``) each attention
 half also counts ``attn_core.onepass``, ``attn_core.long`` or
 ``attn_core.stream``, on either path: on the CPU the core its head width and
-length would take on the card.
+length would take on the card, and each MLP half ``mlp_half.fused``.
 """
 from __future__ import annotations
 
@@ -261,9 +261,11 @@ def fused_attention_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
 
 
 def fused_mlp_block(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj):
-    """``x + proj(quickGELU(fc(LN(x))))`` over (M, W). Replaces
-    ``vit_kernels.fused_mlp_block``."""
+    """``x + proj(quickGELU(fc(LN(x))))`` over (M, W): the LayerNorm pass,
+    the QuickGELU GEMM (its epilogue under the next tile's products) and
+    the residual GEMM. Replaces ``vit_kernels.fused_mlp_block``."""
     name = "fused_mlp_block"
+    trace.count("mlp_half.fused")
     if not x.is_cuda:
         return mlp_block_plain(x, ln_scale, ln_bias, w_fc, b_fc, w_proj,
                                b_proj)
@@ -298,8 +300,9 @@ def fused_mlp(x, w_fc, b_fc, w_proj, b_proj):
 
 
 # ---------------------------------------------------------------------------
-# switches (vit_kernels.py:231-277): the same type, alignment and
-# environment conditions. On the card the wrapper then launches its kernel;
+# switches (vit_kernels.py:231-277): the same type and alignment
+# conditions; kernel 10 is on by default where JAX's is opt-in, and kernel
+# 5 takes heads of 80. On the card the wrapper then launches its kernel;
 # on the CPU it takes the plain version, the same arithmetic, so the CPU
 # tower runs what the card's kernels are held to.
 # ---------------------------------------------------------------------------
@@ -316,8 +319,10 @@ def use_fused_attention(dtype, width: int, heads: int) -> bool:
 
 
 def use_fused_mlp_block(dtype, width: int) -> bool:
-    """Opt-in: ``VILGOD_FUSED_MLP_BLOCK=1``."""
-    if os.environ.get("VILGOD_FUSED_MLP_BLOCK") != "1":
+    """On for a bf16 tower whose width and MLP width are 128-aligned
+    (JAX's condition, where the switch stays opt-in):
+    ``VILGOD_FUSED_MLP_BLOCK=0`` turns it off."""
+    if os.environ.get("VILGOD_FUSED_MLP_BLOCK") == "0":
         return False
     return not (dtype != torch.bfloat16 or width % 128 or (4 * width) % 128)
 
